@@ -1,0 +1,99 @@
+"""Shared CLI plumbing: config construction, cached corpus tokenization,
+item-table upload, model initialisation and checkpoint loading.
+
+Counterpart of ``recformer_tpu/cli/common.py``. Functions that place data
+or a model take a ``device``, default ``cuda``; without a GPU they raise
+unless the caller asks for ``cpu``.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Dict, Optional
+
+import torch
+
+from ..config import RecformerConfig
+from ..data.item_table import ItemTable
+from ..data.tokenization import RecformerTokenizer
+from ..data.vocab import backend_for_config
+from ..models.recformer import init_weights
+from ..utils.device import resolve_device
+
+
+def build_config(args, item_num: int = 0) -> RecformerConfig:
+    kw = dict(item_num=item_num)
+    for name in ("temp", "finetune_negative_sample_size", "attention_impl",
+                 "max_token_num", "pooler_type", "mlm_weight", "pos_weight",
+                 "scan_layers", "remat", "remat_policy", "hidden_act",
+                 "scan_unroll", "ln_impl"):
+        if hasattr(args, name) and getattr(args, name) is not None:
+            kw[name] = getattr(args, name)
+    if getattr(args, "model_size", "base") == "tiny":
+        return RecformerConfig.tiny(**{k: v for k, v in kw.items()
+                                       if k not in ("max_token_num",)})
+    return RecformerConfig.base(**kw)
+
+
+def make_tokenizer(config: RecformerConfig, hf_tokenizer_path: Optional[str] = None):
+    hf_tok = None
+    if hf_tokenizer_path:
+        from transformers import AutoTokenizer
+
+        hf_tok = AutoTokenizer.from_pretrained(hf_tokenizer_path, local_files_only=True)
+    return RecformerTokenizer(config, backend_for_config(config, hf_tok))
+
+
+def tokenize_corpus_cached(tokenizer: RecformerTokenizer, item_meta: Dict,
+                           item2id: Dict[str, int], cache_dir: str,
+                           cache_name: str) -> ItemTable:
+    """Tokenize all item metadata into a packed ItemTable, with an npz disk
+    cache."""
+    os.makedirs(cache_dir, exist_ok=True)
+    cache = os.path.join(cache_dir, f"item_table_{cache_name}.npz")
+    if os.path.exists(cache):
+        print(f"[corpus] cache hit: {cache}")
+        return ItemTable.load(cache)
+    print(f"[corpus] tokenizing {len(item_meta)} items")
+    table = tokenizer.encode_corpus_table(item_meta, item2id)
+    table.save(cache)
+    return table
+
+
+def table_to_device(table: ItemTable, device="cuda") -> Dict[str, torch.Tensor]:
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(v).to(dev) for k, v in table.as_arrays().items()}
+
+
+def init_model_params(model, config: RecformerConfig, device="cuda", seed: int = 0):
+    """Initialise ``model``'s parameters from ``seed`` (an explicit CPU
+    generator, so the weights do not depend on the device), move it to
+    ``device`` and put it in eval mode. Returns the model."""
+    dev = resolve_device(device)
+    init_weights(model, config, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval()
+
+
+def maybe_load_pretrained(model, ckpt_path: Optional[str]):
+    """Load a torch ``.bin``/``.pt`` state dict into ``model``: every
+    name+shape match is copied, the rest keeps its initial value (the
+    reference's ``strict=False`` load). Returns the model."""
+    if not ckpt_path:
+        return model
+    sd = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    if "state_dict" in sd and isinstance(sd["state_dict"], dict):
+        sd = sd["state_dict"]
+    own = model.state_dict()
+    matched, skipped = {}, []
+    for name, tensor in sd.items():
+        n = re.sub(r"^model\.", "", re.sub(r"^_forward_module\.", "", name))
+        if n in own and own[n].shape == tensor.shape:
+            matched[n] = tensor
+        else:
+            skipped.append(name)
+    model.load_state_dict(matched, strict=False)
+    print(f"[import] copied {len(matched)} tensors, skipped {len(skipped)}")
+    for s in skipped[:20]:
+        print(f"[import]   skipped: {s}")
+    return model

@@ -1,0 +1,95 @@
+"""Build and load the port's CUDA kernels.
+
+Each source under ``csrc/`` compiles with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, loaded through ``ctypes``. A build
+happens at first use, into ``recformer_tpu_torch/_build/`` (listed in
+``.gitignore``), under a name that carries a hash of the source and flags,
+so an edited source rebuilds. Importing this module looks for nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Dict
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+SOURCES = {"band_attention_fwd": os.path.join(_HERE, "csrc", "band_attention_fwd.cu")}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures, by library name: (argtypes, restype)
+SIGNATURES = {
+    "band_attention_fwd": (
+        [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # dtype, 9 inputs, out
+         _I, _I, _I, _I, _I, _I,                       # B L H D G window
+         ctypes.c_float, _I, _P],                      # scale, fuse, stream
+        ctypes.c_int),
+}
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
+                           "with the CUDA toolkit")
+    return path
+
+
+def library_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    with open(SOURCES[name], "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+
+
+def _start_build(name: str):
+    """Start ``nvcc`` for one source; returns (Popen, tmp, final) or None if
+    the library is already built."""
+    so = library_path(name)
+    if os.path.exists(so):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.tmp{os.getpid()}"
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCES[name]],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    return proc, tmp, so
+
+
+def _finish_build(name: str, job) -> None:
+    proc, tmp, so = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{log.decode(errors='replace')}")
+    os.replace(tmp, so)
+
+
+def build_all() -> None:
+    """Build every kernel library, one ``nvcc`` per source, all started
+    together."""
+    jobs = {name: _start_build(name) for name in SOURCES}
+    for name, job in jobs.items():
+        if job is not None:
+            _finish_build(name, job)
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        job = _start_build(name)
+        if job is not None:
+            _finish_build(name, job)
+        lib = ctypes.CDLL(library_path(name))
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = SIGNATURES[name]
+        _LOADED[name] = lib
+    return lib

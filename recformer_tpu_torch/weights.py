@@ -1,0 +1,124 @@
+"""Carry weights between the JAX package's flax tree and the port.
+
+The port's parameters carry HF Longformer names; the flax tree uses the JAX
+package's module paths. The map between the two, and which leaves are dense
+kernels stored transposed (flax ``(in, out)`` vs torch ``(out, in)``), is
+the one ``recformer_tpu/training/checkpoint.py`` keeps in
+``_torch_name_to_flax_path``; this module holds its own copy.
+
+Only the unrolled ``layer_{i}`` tree is handled; the stacked ``scan_layers``
+layout comes later.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+# torch suffix -> (flax path suffix, transposed dense kernel?)
+_EMBEDDINGS = {
+    "word_embeddings.weight": (("word_embeddings", "embedding"), False),
+    "position_embeddings.weight": (("position_embeddings", "embedding"), False),
+    "token_type_embeddings.weight": (("token_type_embeddings", "embedding"), False),
+    "item_position_embeddings.weight": (("item_position_embeddings", "embedding"), False),
+    "LayerNorm.weight": (("LayerNorm", "scale"), False),
+    "LayerNorm.bias": (("LayerNorm", "bias"), False),
+}
+_LAYER = {
+    "attention.output.dense.weight": (("attention", "output_dense", "kernel"), True),
+    "attention.output.dense.bias": (("attention", "output_dense", "bias"), False),
+    "attention.output.LayerNorm.weight": (("attention", "output_LayerNorm", "scale"), False),
+    "attention.output.LayerNorm.bias": (("attention", "output_LayerNorm", "bias"), False),
+    "intermediate.dense.weight": (("ffn", "intermediate_dense", "kernel"), True),
+    "intermediate.dense.bias": (("ffn", "intermediate_dense", "bias"), False),
+    "output.dense.weight": (("ffn", "output_dense", "kernel"), True),
+    "output.dense.bias": (("ffn", "output_dense", "bias"), False),
+    "output.LayerNorm.weight": (("ffn", "output_LayerNorm", "scale"), False),
+    "output.LayerNorm.bias": (("ffn", "output_LayerNorm", "bias"), False),
+}
+for _proj in ("query", "key", "value", "query_global", "key_global", "value_global"):
+    _LAYER[f"attention.self.{_proj}.weight"] = (("attention", "self", _proj, "kernel"), True)
+    _LAYER[f"attention.self.{_proj}.bias"] = (("attention", "self", _proj, "bias"), False)
+_LM_HEAD = {
+    "lm_head.dense.weight": (("lm_head", "dense", "kernel"), True),
+    "lm_head.dense.bias": (("lm_head", "dense", "bias"), False),
+    "lm_head.layer_norm.weight": (("lm_head", "layer_norm", "scale"), False),
+    "lm_head.layer_norm.bias": (("lm_head", "layer_norm", "bias"), False),
+    "lm_head.bias": (("lm_head", "bias"), False),
+}
+_EMBEDDINGS_INV = {path: (name, tr) for name, (path, tr) in _EMBEDDINGS.items()}
+_LAYER_INV = {path: (name, tr) for name, (path, tr) in _LAYER.items()}
+_LM_HEAD_INV = {path: (name, tr) for name, (path, tr) in _LM_HEAD.items()}
+
+
+def torch_name_to_flax_path(name: str) -> Tuple[Tuple[str, ...], bool]:
+    """(flax path, transpose) of a torch Longformer/Recformer parameter name;
+    KeyError for a name with no counterpart."""
+    n = re.sub(r"^_forward_module\.", "", name)
+    n = re.sub(r"^model\.", "", n)
+    m = re.match(r"^longformer\.embeddings\.(.+)$", n)
+    if m and m.group(1) in _EMBEDDINGS:
+        path, tr = _EMBEDDINGS[m.group(1)]
+        return ("longformer", "embeddings") + path, tr
+    m = re.match(r"^longformer\.encoder\.layer\.(\d+)\.(.+)$", n)
+    if m and m.group(2) in _LAYER:
+        path, tr = _LAYER[m.group(2)]
+        return ("longformer", "encoder", f"layer_{int(m.group(1))}") + path, tr
+    if n in _LM_HEAD:
+        return _LM_HEAD[n]
+    raise KeyError(name)
+
+
+def flax_path_to_torch_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
+    """Inverse of :func:`torch_name_to_flax_path`."""
+    if path[:2] == ("longformer", "embeddings") and path[2:] in _EMBEDDINGS_INV:
+        name, tr = _EMBEDDINGS_INV[path[2:]]
+        return f"longformer.embeddings.{name}", tr
+    if len(path) > 3 and path[:2] == ("longformer", "encoder"):
+        m = re.fullmatch(r"layer_(\d+)", path[2])
+        if m and path[3:] in _LAYER_INV:
+            name, tr = _LAYER_INV[path[3:]]
+            return f"longformer.encoder.layer.{int(m.group(1))}.{name}", tr
+    if path in _LM_HEAD_INV:
+        return _LM_HEAD_INV[path]
+    raise KeyError("/".join(path))
+
+
+def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, prefix + (k,)))
+    else:
+        out[prefix] = tree
+    return out
+
+
+def from_flax_params(tree) -> Dict[str, torch.Tensor]:
+    """The JAX package's parameters (``{'params': ...}`` or a bare tree of
+    numpy arrays) as the port's state dict. Raises KeyError on a leaf the
+    port has no name for."""
+    if isinstance(tree, dict) and "params" in tree:
+        tree = tree["params"]
+    sd = {}
+    for path, arr in _flatten(tree).items():
+        name, transpose = flax_path_to_torch_name(path)
+        a = np.asarray(arr)
+        sd[name] = torch.from_numpy(np.array(a.T if transpose else a))
+    return sd
+
+
+def to_flax_params(state_dict: Dict[str, torch.Tensor]):
+    """The port's state dict as a bare flax tree of numpy arrays."""
+    root: dict = {}
+    for name, tensor in state_dict.items():
+        path, transpose = torch_name_to_flax_path(name)
+        a = tensor.detach().cpu().numpy()
+        node = root
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.ascontiguousarray(a.T if transpose else a)
+    return root

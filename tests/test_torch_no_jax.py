@@ -1,0 +1,50 @@
+"""The port imports neither JAX, flax nor the JAX package: the GPU machine
+has none of them."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import recformer_tpu_torch
+
+PKG_DIR = os.path.dirname(recformer_tpu_torch.__file__)
+REPO = os.path.dirname(PKG_DIR)
+
+
+def port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages([PKG_DIR], "recformer_tpu_torch."))
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = port_modules()
+    assert "recformer_tpu_torch.ops.window_attention" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax')"
+        " or n == 'recformer_tpu' or n.startswith('recformer_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.startswith("ok")
+
+
+def test_sources_name_no_jax():
+    # "recformer_tpu_torch" passes: no word boundary or dot after "recformer_tpu"
+    bad_import = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|recformer_tpu)\b", re.M)
+    jax_package = re.compile(r"\brecformer_tpu\.")
+    sources = [os.path.join(d, f) for d, _, fs in os.walk(PKG_DIR) for f in fs
+               if f.endswith((".py", ".cu")) and "_build" not in d.split(os.sep)]
+    sources.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(sources) > 20
+    for path in sources:
+        with open(path) as f:
+            text = f.read()
+        assert not bad_import.search(text), path
+        assert not jax_package.search(text), path
