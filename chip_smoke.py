@@ -1,26 +1,42 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one CUDA card.
+"""Drive the PyTorch port's serving and pretraining paths once on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
 Phases, one JSON line each; any failure ends the run with a non-zero exit:
 
 1. environment: the card's name and power limit (``nvidia-smi``);
-2. build: every CUDA kernel of the path, from the repository's sources;
-3. kernel_check: each kernel against its plain PyTorch version on the same
-   inputs, in float32 (max abs error <= 1e-4) and bfloat16 (<= 2e-2), at
-   the shapes of the JAX kernel tests and at the two Recformer-base shapes;
-4. kernel_time: the kernel, its plain version and one PyTorch library call
-   (``scaled_dot_product_attention`` with an explicit band+global mask) at
-   the base shapes, median of per-launch CUDA-event times, beside the least
-   time the card could take for the same work;
-5. serving: Recformer-base (random weights from ``--seed``) encodes a
+2. build: every CUDA kernel of the paths, from the repository's sources, one
+   ``nvcc`` per source, all started together;
+3. kernel_check: both kernels against their plain PyTorch versions on the
+   same inputs, at the shapes of the JAX kernel tests and at the two
+   Recformer-base shapes, float32 and bfloat16, attention dropout 0 and 0.1
+   (one seed): the forward on max abs error (<= 1e-4 / 2e-2), each of the
+   backward's six outputs on max|err| / max|ref| (<= 1e-4 / 1e-2);
+4. dropout_check: at the sequence tower's shape, determinism per seed, the
+   keep fraction (0.9 +- 0.005), mean-field unbiasedness over 64 seeds and
+   forward/backward mask agreement (a directional derivative along v);
+5. kernel_time: both kernels, their plain versions and one PyTorch library
+   call (``scaled_dot_product_attention`` with an explicit band+global mask,
+   and its backward) at the base shapes, median of per-launch CUDA-event
+   times, beside the least time the card could take for the same work;
+6. serving: Recformer-base (random weights from ``--seed``) encodes a
    synthetic 10,000-item catalog, ranks it for 256 users, and the serve CLI
-   answers a few users; launch counts show the main path ran the kernel.
+   answers a few users;
+7. pretrain_step: 20 base-width pretraining steps at batch 8 (two views,
+   fused clean+MLM towers, dropout 0.1, AdamW), steps/s, the whole-word MLM's
+   time, peak memory; then 10 steps on one fixed batch with dropout off,
+   whose loss must fall;
+8. pretrain_vs_chunked: the float32 gradients of one deterministic step
+   through the kernels and through the plain chunked attention: cosine >
+   0.999, and each attention projection's gradient within 1e-3 relative;
+9. pretrain_cli: ``cli.pretrain --model_size base --device cuda`` on a small
+   corpus (accumulation 2, dev validation, best and last saved).
 
-Then the kernels line, the card line and, last, the result line. Without
-CUDA, or without the package beside it, the script exits non-zero and prints
-no result.
+Launch counts, set to 0 just before each path and read just after, show that
+the paths ran the kernels. Then the kernels line, the card line and, last,
+the result line. Without CUDA, or without the package beside it, the script
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -29,6 +45,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -39,7 +56,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / fp32 core
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # forward, on max abs error
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # backward, each output's rel_err
+BWD_OUTPUTS = ("dq", "dk", "dv", "dgk", "dgv", "dgout")
 BASE_SHAPES = {"item_tower": (256, 128), "sequence_tower": (16, 1024)}  # (B, L), H=12 D=64 W=64
 
 
@@ -107,24 +126,63 @@ def band_case(gen, B, L, H, D, window, dtype, lengths=None, global_at_zero=True,
     return ops
 
 
+def rel_err(out, ref) -> float:
+    """max|out - ref| / max|ref| (the abs error where ref is all zero)."""
+    ref = ref.float()
+    err = float((out.float() - ref).abs().max())
+    scale = float(ref.abs().max())
+    return err / scale if scale > 0 else err
+
+
 def check_case(name, gen, dtype, fuse=True, **kw):
-    from recformer_tpu_torch.ops.window_attention import band_attention, window_attention_plain
+    """Both kernels against their plain versions on one case: the forward at
+    dropout 0 and 0.1 (same seed), the backward's six outputs at dropout 0
+    and 0.1. Returns the forward's max abs error at dropout 0 and the
+    backward's largest abs error over its outputs and both rates."""
+    from recformer_tpu_torch.ops.window_attention import (band_attention, band_attention_bwd,
+                                                          window_attention_bwd_plain,
+                                                          window_attention_plain)
 
     B, L, H, D, window = (kw.pop(x) for x in ("B", "L", "H", "D", "window"))
     ops = band_case(gen, B, L, H, D, window, dtype, **kw)
-    out = band_attention(**ops, num_heads=H, window=window, fuse_epilogue=fuse)
-    torch.cuda.synchronize()
-    ref = window_attention_plain(**ops, num_heads=H, window=window, fuse_epilogue=fuse)
-    diff = (out.float() - ref.float()).abs()
-    err = float(diff.max())
-    rel = float((diff / ref.float().abs().clamp_min(1e-3)).max())
-    ok = bool(torch.isfinite(out.float()).all()) and err <= TOL[dtype]
-    emit("kernel_check", case=name, dtype=str(dtype).removeprefix("torch."),
-         shape=[B, L, H, D], window=window, fused_epilogue=fuse, max_abs_err=err,
-         max_rel_err=rel, tol_abs=TOL[dtype], ok=ok)
-    if not ok:
-        raise AssertionError(f"kernel disagrees with its plain version: {name} {dtype}")
-    return err
+    common = dict(num_heads=H, window=window, fuse_epilogue=fuse)
+    fwd_err = bwd_err = 0.0
+    for rate in (0.0, 0.1):
+        drop = dict(dropout_rate=rate, seed=1234 + L)
+        with torch.no_grad():
+            out = band_attention(**ops, **common, **drop)
+        torch.cuda.synchronize()
+        ref = window_attention_plain(**ops, **common, **drop)
+        err = float((out.float() - ref.float()).abs().max())
+        ok = bool(torch.isfinite(out.float()).all()) and err <= TOL[dtype]
+        emit("kernel_check", kernel="band_attention_fwd", case=name,
+             dtype=str(dtype).removeprefix("torch."), shape=[B, L, H, D], window=window,
+             fused_epilogue=fuse, dropout=rate, max_abs_err=err, tol_abs=TOL[dtype], ok=ok)
+        if not ok:
+            raise AssertionError(f"forward kernel disagrees with its plain version: {name} "
+                                 f"{dtype} rate {rate}")
+        if rate == 0.0:
+            fwd_err = err
+
+        dout = (torch.randn(B, L, H * D, generator=gen, device="cuda") * 0.5).to(dtype)
+        if not fuse:  # the wrapper zeroes the gradient at global and padding rows
+            dout = torch.where(ops["mrow"][:, :, None] == 1, dout, 0.0)
+        got = band_attention_bwd(**ops, dout=dout, **common, **drop)
+        torch.cuda.synchronize()
+        want = window_attention_bwd_plain(**ops, dout=dout, **common, **drop)
+        errs = {n: rel_err(g, w) for n, g, w in zip(BWD_OUTPUTS, got, want)}
+        abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        ok = (all(bool(torch.isfinite(g.float()).all()) for g in got)
+              and max(errs.values()) <= BWD_TOL[dtype])
+        emit("kernel_check", kernel="band_attention_bwd", case=name,
+             dtype=str(dtype).removeprefix("torch."), shape=[B, L, H, D], window=window,
+             fused_epilogue=fuse, dropout=rate, rel_err=errs, max_abs_err=abs_err,
+             tol_rel=BWD_TOL[dtype], ok=ok)
+        if not ok:
+            raise AssertionError(f"backward kernel disagrees with its plain version: {name} "
+                                 f"{dtype} rate {rate}: {errs}")
+        bwd_err = max(bwd_err, abs_err)
+    return fwd_err, bwd_err
 
 
 def check_kernels(gen):
@@ -160,6 +218,83 @@ def check_kernels(gen):
     return errs
 
 
+def dropout_check(gen, card):
+    """The kernels' dropout at the sequence tower's shape (bf16, rate 0.1):
+    determinism per seed, the keep fraction, mean-field unbiasedness over 64
+    seeds, and forward/backward mask agreement (the output is linear in v
+    for a fixed mask, so the derivative along a random dv equals
+    <grad_v, dv> only if the backward regenerates the forward's mask)."""
+    from recformer_tpu_torch.ops.window_attention import band_attention
+
+    B, L = BASE_SHAPES["sequence_tower"]
+    H, D, W, rate = 12, 64, 64, 0.1
+    lengths = np.random.default_rng(2).integers(L // 4, L + 1, size=B).tolist()
+    ops = band_case(gen, B, L, H, D, W, torch.bfloat16, lengths=lengths)
+    common = dict(num_heads=H, window=W, fuse_epilogue=True)
+    local = (ops["mrow"] == 1)[:, :, None]
+
+    def run(seed, rate_=rate, **over):
+        with torch.no_grad():
+            return band_attention(**dict(ops, **over), **common, dropout_rate=rate_,
+                                  seed=seed).float()
+
+    o1, o2, o3, clean = run(7), run(7), run(8), run(0, 0.0)
+    determinism = bool(torch.equal(o1, o2) and not torch.equal(o1, o3)
+                       and not torch.equal(o1, clean))
+
+    # keep fraction: with q = 0 every valid column scores 0 and, with v = 1
+    # and float32, a local row's output is kept columns / (1 - rate) / valid
+    ops32 = {n: (t.float() if t.is_floating_point() else t) for n, t in ops.items()}
+    with torch.no_grad():
+        ones = band_attention(**dict(ops32, q2=torch.zeros_like(ops32["q2"]),
+                                     v2=torch.ones_like(ops32["v2"]),
+                                     gv=torch.ones_like(ops32["gv"])),
+                              **common, dropout_rate=rate, seed=11)
+    half = W // 2
+    keyloc = torch.nn.functional.pad(ops["keyloc"], (half, half))
+    n_valid = (keyloc.unfold(1, W + 1, 1).sum(-1) + ops["gvalid"].sum(-1, keepdim=True)).float()
+    kept = ones.view(B, L, H, D)[..., 0] * (1.0 - rate) * n_valid[:, :, None]  # (B, L, H)
+    sel = ops["mrow"] == 1
+    keep_fraction = float(kept[sel].sum() / (n_valid[sel].sum() * H))
+
+    K = 64
+    acc = torch.zeros_like(clean)
+    for s in range(K):
+        acc += run(100 + s)
+    ref = clean[local.expand_as(clean)]
+    rel_mean = float(torch.linalg.norm(acc[local.expand_as(acc)] / K - ref)
+                     / torch.linalg.norm(ref))
+    rel_one = float(torch.linalg.norm(run(100)[local.expand_as(clean)] - ref)
+                    / torch.linalg.norm(ref))
+    unbiased = rel_mean < 1.6 * rel_one / math.sqrt(K)
+
+    # forward/backward mask agreement
+    w = torch.randn(B, L, H * D, generator=gen, device="cuda")
+    dv = (torch.randn(B, L, H * D, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    v = ops["v2"].detach().clone().requires_grad_()
+    loss = (band_attention(**dict(ops, v2=v), **common, dropout_rate=rate, seed=42).float()
+            * w).sum()
+    (g,) = torch.autograd.grad(loss, v)
+    analytic = float((g.float() * dv.float()).sum())
+
+    def fd(seed):
+        lp = (run(seed, v2=(v.detach().float() + dv.float()).to(torch.bfloat16)) * w).sum()
+        lm = (run(seed, v2=(v.detach().float() - dv.float()).to(torch.bfloat16)) * w).sum()
+        return float(lp - lm) / 2.0
+
+    f_same, f_other = fd(42), fd(43)
+    rel_same = abs(analytic - f_same) / max(abs(f_same), 1e-6)
+    rel_other = abs(analytic - f_other) / max(abs(f_other), 1e-6)
+    agree = rel_same < 2e-2 and rel_other > 3 * rel_same
+    ok = determinism and abs(keep_fraction - (1 - rate)) <= 0.005 and unbiased and agree
+    emit("dropout_check", shape=[B, L, H, D], rate=rate, determinism=determinism,
+         keep_fraction=keep_fraction, mean_field_rel_err=rel_mean, one_seed_rel_err=rel_one,
+         seeds=K, vjp_analytic=analytic, vjp_fd=f_same, vjp_rel_err=rel_same,
+         vjp_rel_err_other_seed=rel_other, card=card, ok=ok)
+    if not ok:
+        raise AssertionError("attention dropout check failed")
+
+
 def useful_pairs(ops, window) -> int:
     """(query, key) pairs the local rows need: in-band local keys plus the
     valid global columns (global and padding rows are overwritten)."""
@@ -170,49 +305,98 @@ def useful_pairs(ops, window) -> int:
     return int((per_row * (ops["mrow"] == 1)).sum())
 
 
-def sdpa_call(ops, H, D, window):
-    """One PyTorch call computing the local rows: SDPA with an explicit
-    band+global boolean mask."""
+def sdpa_mask(ops, window):
+    """The band+global boolean mask of the local rows, (B, 1, L, L)."""
     B, L, HD = ops["q2"].shape
     half = window // 2
     idx = torch.arange(L, device=ops["q2"].device)
     band = (idx[:, None] - idx[None, :]).abs() <= half
     allowed = band[None] & (ops["keyloc"] != 0)[:, None, :]
     gcol = ops["mrow"] == 2  # the kept global row enters as a key column
-    allowed = (allowed | gcol[:, None, :])[:, None]  # (B, 1, L, L)
+    return (allowed | gcol[:, None, :])[:, None]
+
+
+def sdpa_call(ops, H, D, window):
+    """One PyTorch call computing the local rows: SDPA with an explicit
+    band+global boolean mask."""
+    B, L, HD = ops["q2"].shape
+    allowed = sdpa_mask(ops, window)
     q, k, v = (ops[n].view(B, L, H, D).transpose(1, 2) for n in ("q2", "k2", "v2"))
     return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=allowed)
 
 
-def time_kernels(gen):
-    from recformer_tpu_torch.ops.window_attention import band_attention, window_attention_plain
+def sdpa_bwd_call(ops, H, D, window, dout):
+    """The backward of that SDPA call: autograd.grad of its output."""
+    B, L, HD = ops["q2"].shape
+    allowed = sdpa_mask(ops, window)
+    q, k, v = (ops[n].view(B, L, H, D).transpose(1, 2).detach().requires_grad_()
+               for n in ("q2", "k2", "v2"))
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=allowed)
+    g = dout.view(B, L, H, D).transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+
+
+def bound(nbytes, ops_count, dtype):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_count / PEAK_OPS[dtype] * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def time_kernels(gen, card):
+    """Both kernels at the two base shapes (bf16; the forward with and
+    without dropout), beside the plain versions, SDPA and the bound."""
+    from recformer_tpu_torch.ops import window_attention as wa
 
     H, D, W = 12, 64, 64
-    rows = {}
+    rate = 0.1
+    rows = {"band_attention_fwd": {}, "band_attention_bwd": {}}
     rng = np.random.default_rng(1)
     for name, (B, L) in BASE_SHAPES.items():
         dtype = torch.bfloat16
         ops = band_case(gen, B, L, H, D, W, dtype,
                         lengths=rng.integers(L // 4, L + 1, size=B).tolist())
-        kernel_ms = median_launch_ms(
-            lambda: band_attention(**ops, num_heads=H, window=W, fuse_epilogue=True))
-        plain_ms = median_launch_ms(
-            lambda: window_attention_plain(**ops, num_heads=H, window=W, fuse_epilogue=True),
-            n=20, warmup=2)
-        library_ms = median_launch_ms(sdpa_call(ops, H, D, W))
+        common = dict(num_heads=H, window=W, fuse_epilogue=True)
         elt = ops["q2"].element_size()
         G = ops["gk"].shape[1]
+        pairs = useful_pairs(ops, W)
+        with torch.no_grad():
+            kernel_ms = median_launch_ms(lambda: wa.band_attention(**ops, **common))
+            drop_ms = median_launch_ms(lambda: wa.band_attention(**ops, **common,
+                                                                 dropout_rate=rate, seed=5))
+            plain_ms = median_launch_ms(lambda: wa.window_attention_plain(**ops, **common),
+                                        n=10, warmup=1)
+            library_ms = median_launch_ms(sdpa_call(ops, H, D, W))
         nbytes = (4 * B * L * H * D * elt + 3 * B * G * H * D * elt
                   + 2 * B * L * 4 + B * G * 4)
-        ops_count = 4 * D * H * useful_pairs(ops, W)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops_count / PEAK_OPS[dtype] * 1e3
-        rows[name] = dict(shape=[B, L, H, D], window=W, dtype="bfloat16", ms=kernel_ms,
-                          plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=max(bytes_ms, ops_ms),
-                          bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                          bytes=nbytes, operations=ops_count)
-        emit("kernel_time", case=name, **rows[name])
+        b_ms, b_by = bound(nbytes, 4 * D * H * pairs, dtype)
+        rows["band_attention_fwd"][name] = dict(
+            shape=[B, L, H, D], window=W, dtype="bfloat16", ms=kernel_ms,
+            ms_dropout=drop_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+            bound_by=b_by, bytes=nbytes, operations=4 * D * H * pairs, card=card)
+        emit("kernel_time", kernel="band_attention_fwd", case=name,
+             **rows["band_attention_fwd"][name])
+
+        dout = (torch.randn(B, L, H * D, generator=gen, device="cuda") * 0.5).to(dtype)
+        bwd = lambda: wa.band_attention_bwd(**ops, dout=dout, **common,  # noqa: E731
+                                            dropout_rate=rate, seed=5)
+        kernel_ms = median_launch_ms(bwd)
+        plain_ms = median_launch_ms(
+            lambda: wa.window_attention_bwd_plain(**ops, dout=dout, **common,
+                                                  dropout_rate=rate, seed=5), n=5, warmup=1)
+        library_ms = median_launch_ms(sdpa_bwd_call(ops, H, D, W, dout))
+        # q, k, v, dout read; dq, dk, dv written; keyloc, mrow and gvalid
+        # read; gk, gv read; dgk, dgv, dgout written (fp32, as the TPU
+        # kernel's). The kernel's own scratch (row statistics, tile
+        # partials) is not work the function needs, so it is not counted.
+        nbytes = (7 * B * L * H * D * elt + 2 * B * L * 4 + B * G * 4
+                  + 2 * B * G * H * D * elt + 3 * B * G * H * D * 4)
+        b_ms, b_by = bound(nbytes, 10 * D * H * pairs, dtype)
+        rows["band_attention_bwd"][name] = dict(
+            shape=[B, L, H, D], window=W, dtype="bfloat16", dropout=rate, ms=kernel_ms,
+            plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+            bytes=nbytes, operations=10 * D * H * pairs, card=card)
+        emit("kernel_time", kernel="band_attention_bwd", case=name,
+             **rows["band_attention_bwd"][name])
     return rows
 
 
@@ -338,6 +522,178 @@ def run_serving(seed, card):
     return enc_launches + eval_launches + serve_launches
 
 
+# ---------------------------------------------------------------------------
+# the pretraining path at full base width
+# ---------------------------------------------------------------------------
+
+def pretrain_world(cfg, seed, n_items=10_000, batch=8):
+    """A synthetic 10,000-item table and one batch of histories of 16-50
+    items (the history view fills up to its 1024 tokens), on the card."""
+    dev = torch.device("cuda")
+    table = {k: torch.from_numpy(v).to(dev)
+             for k, v in synthetic_table(cfg, n_items, seed).items()}
+    rng = np.random.default_rng(seed + 2)
+    S = cfg.max_item_embeddings - 1
+    item_ids = torch.from_numpy(rng.integers(0, n_items, size=(batch, S)).astype(np.int32))
+    seq_lens = torch.from_numpy(rng.integers(16, S + 1, size=batch).astype(np.int32))
+    return table, item_ids.to(dev), seq_lens.to(dev)
+
+
+def run_pretrain_step(seed, card):
+    """20 timed base-width pretraining steps (after 2 warm-up steps) with
+    dropout 0.1, launch counts per step, then 10 steps on one fixed batch
+    with dropout off, whose loss must fall."""
+    from recformer_tpu_torch.cli.common import init_model_params
+    from recformer_tpu_torch.config import RecformerConfig
+    from recformer_tpu_torch.data.device_pipeline import make_pretrain_batch, mlm_for_config
+    from recformer_tpu_torch.models.heads import RecformerForPretraining
+    from recformer_tpu_torch.ops import window_attention as wa
+    from recformer_tpu_torch.training.optimizer import create_optimizer
+    from recformer_tpu_torch.training.steps import make_pretrain_step
+    from recformer_tpu_torch.utils.rng import StepRNG
+
+    cfg = RecformerConfig.base()
+    assert cfg.fuse_mlm_pass and cfg.attention_probs_dropout_prob == 0.1
+    B = 8
+    table, item_ids, seq_lens = pretrain_world(cfg, seed, batch=B)
+    model = init_model_params(RecformerForPretraining(cfg), cfg, device="cuda", seed=seed)
+    opt = create_optimizer(model, learning_rate=5e-5, warmup_steps=1000, total_steps=10_000)
+    step = make_pretrain_step(cfg, model, opt)
+    rng = StepRNG(seed, "cuda")
+    for _ in range(2):
+        step(rng, table, item_ids, seq_lens)
+    torch.cuda.synchronize()
+
+    n = 20
+    torch.cuda.reset_peak_memory_stats()
+    wa.LAUNCHES = wa.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    metrics = [step(rng, table, item_ids, seq_lens) for _ in range(n)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    fwd, bwd = wa.LAUNCHES, wa.BWD_LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    per_step = 2 * cfg.num_hidden_layers  # two towers, one fused (2B, L) forward each
+    ok = (fwd == per_step * n and bwd == per_step * n
+          and all(math.isfinite(x) for x in losses))
+
+    # what the whole-word MLM (its greedy selection included) costs a step
+    ba, bb = make_pretrain_batch(rng.device, table, item_ids, seq_lens, cfg)
+    mlm_ms = median_launch_ms(lambda: (mlm_for_config(rng.device, ba, cfg),
+                                       mlm_for_config(rng.device, bb, cfg)), n=10, warmup=2)
+    emit("pretrain_step", config="RecformerConfig.base()", batch=B,
+         views=[[2 * B, cfg.max_token_num], [2 * B, cfg.item_seq_len]], steps=n,
+         seconds=secs, steps_per_s=n / secs, examples_per_s=B * n / secs,
+         mlm_selection_ms_per_step=mlm_ms, peak_memory_gib=peak / 2 ** 30,
+         fwd_launches_per_step=fwd / n, bwd_launches_per_step=bwd / n,
+         loss_first=losses[0], loss_last=losses[-1], card=card, ok=ok)
+    if not ok:
+        raise AssertionError(f"pretrain step: launches {fwd}/{bwd} over {n} steps "
+                             f"(expected {per_step * n} each), losses {losses}")
+
+    # one fixed batch, dropout off: the same generator state each step
+    cfg0 = cfg.replace(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    model0 = init_model_params(RecformerForPretraining(cfg0), cfg0, device="cuda", seed=seed)
+    opt0 = create_optimizer(model0, learning_rate=1e-4, warmup_steps=2, total_steps=100)
+    step0 = make_pretrain_step(cfg0, model0, opt0)
+    fixed = [float(step0(StepRNG(seed + 5, "cuda"), table, item_ids, seq_lens)["loss"])
+             for _ in range(10)]
+    falls = all(math.isfinite(x) for x in fixed) and np.mean(fixed[-3:]) < np.mean(fixed[:3])
+    emit("pretrain_fixed_batch", steps=10, dropout=0.0, losses=fixed, falls=bool(falls),
+         ok=bool(falls))
+    if not falls:
+        raise AssertionError(f"fixed-batch loss did not fall: {fixed}")
+    del model, model0, opt, opt0
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+ATTN_PROJ = re.compile(r"\.attention\.self\.(query|key|value)(_global)?\.(weight|bias)$")
+
+
+def run_pretrain_vs_chunked(seed):
+    """One deterministic loss and backward in float32 compute from the same
+    weights and batch, through the kernel path (both kernels' float32
+    paths) and through the plain chunked attention. The flattened gradients
+    must agree to cosine > 0.999, and each attention projection's gradient
+    to 1e-3 relative wherever it carries more than rounding (a key bias's
+    gradient is zero up to rounding, softmax being shift-invariant); the
+    pooled cosine is dominated by the embedding and decoder gradients and
+    cannot see a fault in the attention backward alone."""
+    from recformer_tpu_torch.cli.common import init_model_params
+    from recformer_tpu_torch.config import RecformerConfig
+    from recformer_tpu_torch.data.device_pipeline import make_pretrain_batch
+    from recformer_tpu_torch.models.heads import RecformerForPretraining
+    from recformer_tpu_torch.training.steps import pretrain_loss
+
+    cfg = RecformerConfig.base().replace(dtype="float32")
+    table, item_ids, seq_lens = pretrain_world(cfg, seed + 7)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ba, bb = make_pretrain_batch(gen, table, item_ids, seq_lens, cfg)
+    model = init_model_params(RecformerForPretraining(cfg), cfg, device="cuda", seed=seed)
+    state = {n: t.clone() for n, t in model.state_dict().items()}
+    del model
+
+    def grads(impl):
+        c = cfg.replace(attention_impl=impl)
+        model = RecformerForPretraining(c).to("cuda")
+        model.load_state_dict(state)
+        loss, _ = pretrain_loss(c, model(ba, bb), ba, bb)
+        loss.backward()
+        return {n: p.grad.float() for n, p in model.named_parameters()}, float(loss.detach())
+
+    (gk, loss_k), (gc, loss_c) = grads("pallas"), grads("chunked")
+    cos = float(torch.nn.functional.cosine_similarity(
+        torch.cat([g.flatten() for g in gk.values()]),
+        torch.cat([gc[n].flatten() for n in gk]), dim=0))
+    total = sum(float(g.norm() ** 2) for g in gc.values())
+    share = {n: float(g.norm() ** 2) / total for n, g in gc.items()}
+    rel = {n: float((g - gc[n]).norm() / gc[n].norm().clamp_min(1e-30)) for n, g in gk.items()}
+    gated = [n for n in gk if ATTN_PROJ.search(n) and share[n] > 1e-10]
+    worst = max(gated, key=rel.get)
+    worst_any = max(rel, key=rel.get)
+    del gk, gc
+    ok = cos > 0.999 and len(gated) >= 4 * cfg.num_hidden_layers and rel[worst] <= 1e-3
+    emit("pretrain_vs_chunked", dtype="float32", grad_cosine=cos, loss_kernel=loss_k,
+         loss_chunked=loss_c, attention_tensors_gated=len(gated), worst_gated_tensor=worst,
+         worst_gated_rel_err=rel[worst], worst_gated_norm_share=share[worst],
+         worst_tensor=worst_any, worst_rel_err=rel[worst_any],
+         worst_tensor_norm_share=share[worst_any], ok=ok)
+    if not ok:
+        raise AssertionError(f"kernel path vs chunked gradients: cosine {cos}, "
+                             f"{worst} relative error {rel[worst]} ({len(gated)} gated)")
+    torch.cuda.empty_cache()
+
+
+def run_pretrain_cli(seed):
+    """``cli.pretrain --model_size base --device cuda`` on a small corpus:
+    one epoch with accumulation 2, dev validation, best and last saved."""
+    from recformer_tpu_torch.cli import pretrain
+    from recformer_tpu_torch.ops import window_attention as wa
+
+    with tempfile.TemporaryDirectory() as tmp:
+        seqs = write_corpus(tmp, n_users=24, seed=seed)
+        with open(os.path.join(tmp, "train.json"), "w") as f:
+            json.dump(list(seqs.values()), f)
+        with open(os.path.join(tmp, "dev.json"), "w") as f:
+            json.dump(list(seqs.values())[:8], f)
+        out_dir = os.path.join(tmp, "out")
+        wa.LAUNCHES = wa.BWD_LAUNCHES = 0
+        res = pretrain.main(["--data_path", tmp, "--output_dir", out_dir,
+                             "--model_size", "base", "--num_train_epochs", "1",
+                             "--batch_size", "8", "--gradient_accumulation_steps", "2",
+                             "--warmup_steps", "1", "--seed", str(seed), "--device", "cuda"])
+        fwd, bwd = wa.LAUNCHES, wa.BWD_LAUNCHES
+        written = sorted(os.listdir(out_dir))
+    ok = (res["steps"] == 3 and res["updates"] == 1 and {"best.pt", "last.pt"} <= set(written)
+          and bwd == 24 * res["steps"] and fwd == 24 * (res["steps"] + 1))
+    emit("pretrain_cli", **res, written=written, fwd_launches=fwd, bwd_launches=bwd, ok=ok)
+    if not ok:
+        raise AssertionError(f"cli.pretrain: {res}, {written}, launches {fwd}/{bwd}")
+    return fwd, bwd
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -356,25 +712,37 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     _build.build_all()
-    _build.load_library("band_attention_fwd")
+    for name in _build.SOURCES:
+        _build.load_library(name)
     emit("build", seconds=time.perf_counter() - t0, sources=sorted(_build.SOURCES))
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     errs = check_kernels(gen)
-    times = time_kernels(gen)
-    launches = run_serving(args.seed, card)
+    dropout_check(gen, card)
+    times = time_kernels(gen, card)
+    serve_fwd = run_serving(args.seed, card)
+    step_fwd, step_bwd = run_pretrain_step(args.seed, card)
+    run_pretrain_vs_chunked(args.seed)
+    cli_fwd, cli_bwd = run_pretrain_cli(args.seed)
 
-    head = times["sequence_tower"]
-    kernel = dict(
-        name="band_attention_fwd", route="cuda",
-        source="recformer_tpu_torch/ops/csrc/band_attention_fwd.cu",
-        replaces="recformer_tpu/ops/pallas_attention.py:118",
-        launches=launches,
-        max_abs_err=max(errs[(n, torch.bfloat16)] for n in BASE_SHAPES),
-        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=head["library_ms"],
-        shape="sequence_tower", shapes=times, card=card)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    def kernel_row(name, replaces, launches):
+        head = times[name]["sequence_tower"]
+        return dict(
+            name=name, route="cuda", source=f"recformer_tpu_torch/ops/csrc/{name}.cu",
+            replaces=replaces, launches=sum(launches.values()), launches_by_phase=launches,
+            max_abs_err=max(errs[(n, torch.bfloat16)][name == "band_attention_bwd"]
+                            for n in BASE_SHAPES),
+            ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], library_ms=head["library_ms"],
+            shape="sequence_tower", shapes=times[name], card=card)
+
+    kernels = [
+        kernel_row("band_attention_fwd", "recformer_tpu/ops/pallas_attention.py:118",
+                   {"serving": serve_fwd, "pretrain_step": step_fwd, "pretrain_cli": cli_fwd}),
+        kernel_row("band_attention_bwd", "recformer_tpu/ops/pallas_attention.py:204",
+                   {"pretrain_step": step_bwd, "pretrain_cli": cli_bwd}),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

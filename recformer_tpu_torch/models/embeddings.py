@@ -5,7 +5,8 @@ Counterpart of ``recformer_tpu/models/embeddings.py``:
 - token-position ids are padding-aware: the cumulative count of non-pad
   tokens, offset by ``pad_token_id`` (pad tokens sit at ``pad_token_id``);
 - the four lookups are summed in the compute type, then LayerNormed in
-  float32 with the two-pass variance, then cast back to the compute type.
+  float32 with the two-pass variance, then cast back to the compute type;
+- training applies hidden dropout to the result.
 
 Tables are plain ``nn.Embedding``s in the parameter type; a lookup casts
 the gathered rows to the compute type, which gives the same values as the
@@ -18,6 +19,7 @@ import torch
 from torch import nn
 
 from ..config import RecformerConfig
+from ..utils.rng import dropout
 
 
 def create_position_ids_from_input_ids(input_ids: torch.Tensor, padding_idx: int) -> torch.Tensor:
@@ -38,7 +40,8 @@ class RecformerEmbeddings(nn.Module):
         self.item_position_embeddings = nn.Embedding(config.max_item_embeddings, hs, **kw)
         self.LayerNorm = nn.LayerNorm(hs, eps=config.layer_norm_eps, **kw)
 
-    def forward(self, input_ids, token_type_ids, item_position_ids, position_ids=None):
+    def forward(self, input_ids, token_type_ids, item_position_ids, position_ids=None,
+                rng=None):
         cfg = self.config
         dt = cfg.compute_dtype
         if position_ids is None:
@@ -53,4 +56,4 @@ class RecformerEmbeddings(nn.Module):
         var = (xc * xc).mean(dim=-1, keepdim=True)
         x = xc * torch.rsqrt(var + cfg.layer_norm_eps)
         x = x * self.LayerNorm.weight.float() + self.LayerNorm.bias.float()
-        return x.to(dt)
+        return dropout(x.to(dt), cfg.hidden_dropout_prob, rng)

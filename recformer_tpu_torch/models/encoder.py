@@ -14,6 +14,11 @@ LayerNorm computes its statistics in float32 with flax's fast variance
 ``'pallas'`` the fused kernel (``ops/window_attention.py``), ``'dense'`` and
 ``'chunked'`` the plain twins. ``scan_layers`` and ``remat`` do not change
 the forward math, so the encoder runs the same layer loop under any value.
+
+Training passes a :class:`~recformer_tpu_torch.utils.rng.StepRNG`: attention
+probabilities take ``attention_probs_dropout_prob`` (in the kernel, or in the
+plain twins), the two block outputs take ``hidden_dropout_prob`` before their
+residual sums. Without one the forward is deterministic.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from ..config import RecformerConfig
 from ..ops.attention import (_batch_index, chunked_attention, dense_attention,
                              global_prefix_indices, global_rows_thin)
 from ..ops.window_attention import window_attention
+from ..utils.rng import dropout
 
 # The data contract has exactly one global token per sequence (the <s> row).
 _MAX_GLOBALS = 1
@@ -72,7 +78,7 @@ class LongformerSelfAttention(nn.Module):
         for name in ("query", "key", "value", "query_global", "key_global", "value_global"):
             setattr(self, name, _linear(config, hs, hs))
 
-    def forward(self, hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, hidden: torch.Tensor, mask: torch.Tensor, rng=None) -> torch.Tensor:
         cfg = self.config
         B, L, hs = hidden.shape
         H, D = cfg.num_attention_heads, cfg.head_dim
@@ -91,6 +97,8 @@ class LongformerSelfAttention(nn.Module):
         hid_g = hidden[_batch_index(gidx), gidx]  # (B, G, hs)
         q_g = heads(dense(hid_g, self.query_global, dt))
 
+        rate = cfg.attention_probs_dropout_prob if rng is not None else 0.0
+        gen = rng.device if rng is not None else None
         g_out = k_g = v_g = None
         if cfg.global_kv_mode == "thin":
             # x @ (W_kg^T q_g) instead of (x @ W_kg) q_g: the full-length
@@ -98,24 +106,29 @@ class LongformerSelfAttention(nn.Module):
             g_out = global_rows_thin(
                 hidden, q_g, self.key_global.weight.t(), self.key_global.bias,
                 self.value_global.weight.t(), self.value_global.bias, mask, dt,
-                _MAX_GLOBALS, compact=(cfg.attention_impl == "pallas"))
+                _MAX_GLOBALS, rate, gen, compact=(cfg.attention_impl == "pallas"))
         else:
             k_g = heads(dense(hidden, self.key_global, dt))
             v_g = heads(dense(hidden, self.value_global, dt))
 
         if cfg.attention_impl == "dense":
-            out = dense_attention(q, k, v, q_g, k_g, v_g, mask, self.window, g_out=g_out)
+            out = dense_attention(q, k, v, q_g, k_g, v_g, mask, self.window, rate, gen,
+                                  g_out=g_out)
         elif cfg.attention_impl == "chunked":
             out = chunked_attention(q, k, v, q_g, k_g, v_g, mask, self.window,
-                                    block=min(128, L), g_out=g_out)
+                                    block=min(128, L), dropout_rate=rate, generator=gen,
+                                    g_out=g_out)
         else:  # 'pallas'
-            out = window_attention(q, k, v, q_g, k_g, v_g, mask, self.window, g_out=g_out)
+            out = window_attention(q, k, v, q_g, k_g, v_g, mask, self.window,
+                                   dropout_rate=rate, generator=gen,
+                                   host_generator=rng.host if rng is not None else None,
+                                   g_out=g_out)
         return out.reshape(B, L, hs)
 
 
 class BlockOutput(nn.Module):
-    """Dense projection, residual sum in the compute type, then LayerNorm —
-    the tail of both post-LayerNorm blocks."""
+    """Dense projection, hidden dropout, residual sum in the compute type,
+    then LayerNorm — the tail of both post-LayerNorm blocks."""
 
     def __init__(self, config: RecformerConfig, n_in: int):
         super().__init__()
@@ -124,9 +137,11 @@ class BlockOutput(nn.Module):
         self.LayerNorm = nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps,
                                       dtype=config.params_dtype)
 
-    def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-        dt = self.config.compute_dtype
-        return block_layernorm(dense(x, self.dense, dt) + residual.to(dt), self.LayerNorm, dt)
+    def forward(self, x: torch.Tensor, residual: torch.Tensor, rng=None) -> torch.Tensor:
+        cfg = self.config
+        dt = cfg.compute_dtype
+        x = dropout(dense(x, self.dense, dt), cfg.hidden_dropout_prob, rng)
+        return block_layernorm(x + residual.to(dt), self.LayerNorm, dt)
 
 
 class AttentionBlock(nn.Module):
@@ -136,8 +151,8 @@ class AttentionBlock(nn.Module):
         self.self = LongformerSelfAttention(config, window)
         self.output = BlockOutput(config, config.hidden_size)
 
-    def forward(self, hidden, mask):
-        return self.output(self.self(hidden, mask), hidden)
+    def forward(self, hidden, mask, rng=None):
+        return self.output(self.self(hidden, mask, rng), hidden, rng)
 
 
 class Intermediate(nn.Module):
@@ -161,9 +176,9 @@ class EncoderLayer(nn.Module):
         self.intermediate = Intermediate(config)
         self.output = BlockOutput(config, config.intermediate_size)
 
-    def forward(self, hidden, mask):
-        hidden = self.attention(hidden, mask)
-        return self.output(self.intermediate(hidden), hidden)
+    def forward(self, hidden, mask, rng=None):
+        hidden = self.attention(hidden, mask, rng)
+        return self.output(self.intermediate(hidden), hidden, rng)
 
 
 class LongformerEncoder(nn.Module):
@@ -171,7 +186,7 @@ class LongformerEncoder(nn.Module):
         super().__init__()
         self.layer = nn.ModuleList(EncoderLayer(config, w) for w in config.attention_window)
 
-    def forward(self, hidden, mask):
+    def forward(self, hidden, mask, rng=None):
         for layer in self.layer:
-            hidden = layer(hidden, mask)
+            hidden = layer(hidden, mask, rng)
         return hidden

@@ -1,20 +1,22 @@
-"""Serving head: sequence encoder and catalog scoring.
+"""Task heads: pretraining (contrastive + MLM) and the sequence encoder.
 
-Counterparts of ``cosine_similarity``, ``similarity_scores`` and
-``RecformerForSeqRec`` in ``recformer_tpu/models/heads.py``. The item
-catalog is not a parameter: the item-encoding service produces it and
-scoring takes it as an argument. The pretraining and fraud heads come with
-their slices.
+Counterparts of ``cosine_similarity``, ``similarity_scores``,
+``MLMTransform``, ``RecformerForPretraining`` and ``RecformerForSeqRec`` in
+``recformer_tpu/models/heads.py``. The item catalog is not a parameter: the
+item-encoding service produces it and scoring takes it as an argument. The
+MLM head evaluates logits only at gathered masked positions, through a
+decoder tied to the word embeddings. The fraud head comes with its slice.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from ..config import RecformerConfig
+from .encoder import activation, block_layernorm, dense
 from .recformer import RecformerModel
 
 
@@ -46,7 +48,8 @@ class RecformerForSeqRec(nn.Module):
         self.config = config
         self.longformer = RecformerModel(config)
 
-    def forward(self, batch: Dict[str, torch.Tensor], deterministic: bool = True) -> torch.Tensor:
+    def forward(self, batch: Dict[str, torch.Tensor], deterministic: bool = True,
+                rng=None) -> torch.Tensor:
         _, pooled = self.longformer(
             input_ids=batch["input_ids"],
             attention_mask=batch["attention_mask"],
@@ -54,5 +57,94 @@ class RecformerForSeqRec(nn.Module):
             token_type_ids=batch["token_type_ids"],
             item_position_ids=batch["item_position_ids"],
             deterministic=deterministic,
+            rng=rng,
         )
         return pooled
+
+
+class MLMTransform(nn.Module):
+    """LM head transform (dense -> activation -> LayerNorm) and the tied
+    decoder's bias, with HF ``LongformerLMHead``'s parameter names."""
+
+    def __init__(self, config: RecformerConfig):
+        super().__init__()
+        self.config = config
+        hs = config.hidden_size
+        self.dense = nn.Linear(hs, hs, dtype=config.params_dtype)
+        self.layer_norm = nn.LayerNorm(hs, eps=config.layer_norm_eps, dtype=config.params_dtype)
+        self.bias = nn.Parameter(torch.zeros(config.vocab_size, dtype=config.params_dtype))
+        self.act = activation(config.hidden_act)
+
+    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
+        dt = self.config.compute_dtype
+        return block_layernorm(self.act(dense(hidden, self.dense, dt)), self.layer_norm, dt)
+
+
+class PretrainForwardOutput(NamedTuple):
+    z1: torch.Tensor  # (B, H) pooled sequence-view embeddings
+    z2: torch.Tensor  # (B, H) pooled item-view embeddings
+    mlm_logits_a: Optional[torch.Tensor]  # (B, P_a, vocab) at masked positions
+    mlm_logits_b: Optional[torch.Tensor]  # (B, P_b, vocab)
+
+
+class RecformerForPretraining(nn.Module):
+    """Dual-tower forward with MLM towers; the item view (single target
+    item) runs at ``config.item_seq_len``. With ``fuse_mlm_pass`` a view's
+    clean and MLM-corrupted inputs run as one ``(2B, L)`` forward."""
+
+    def __init__(self, config: RecformerConfig):
+        super().__init__()
+        self.config = config
+        self.longformer = RecformerModel(config)
+        self.lm_head = MLMTransform(config)
+
+    def _backbone(self, input_ids, batch, deterministic, rng, dup: bool = False):
+        def d(x):
+            return torch.cat([x, x], dim=0) if dup else x
+
+        return self.longformer(
+            input_ids=input_ids,
+            attention_mask=d(batch["attention_mask"]),
+            global_attention_mask=d(batch["global_attention_mask"]),
+            token_type_ids=d(batch["token_type_ids"]),
+            item_position_ids=d(batch["item_position_ids"]),
+            deterministic=deterministic, rng=rng)
+
+    def encode(self, batch: Dict[str, torch.Tensor], deterministic: bool = True, rng=None):
+        return self._backbone(batch["input_ids"], batch, deterministic, rng)[1]
+
+    def _logits(self, hidden: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """Logits at ``positions``: the transform, then the decoder tied to
+        the word embeddings in the compute type, plus a float32 bias."""
+        dt = self.config.compute_dtype
+        gathered = torch.gather(hidden, 1, positions.long()[:, :, None].expand(
+            -1, -1, hidden.shape[-1]))  # (B, P, H)
+        h = self.lm_head(gathered)
+        w = self.longformer.embeddings.word_embeddings.weight.to(dt)
+        return (h.to(dt) @ w.t()).float() + self.lm_head.bias.float()
+
+    def mlm_logits(self, mlm_input_ids, batch, mlm_positions, deterministic: bool = True,
+                   rng=None) -> torch.Tensor:
+        """Encoder pass on corrupted ids; logits only at ``mlm_positions``."""
+        hidden, _ = self._backbone(mlm_input_ids, batch, deterministic, rng)
+        return self._logits(hidden, mlm_positions)
+
+    def _tower(self, batch: Dict[str, torch.Tensor], deterministic: bool, rng):
+        """One view's clean and MLM-corrupted passes: one ``(2B, L)`` forward
+        when ``fuse_mlm_pass``, else two."""
+        if "mlm_input_ids" not in batch:
+            return self.encode(batch, deterministic, rng), None
+        if not self.config.fuse_mlm_pass:
+            z = self.encode(batch, deterministic, rng)
+            return z, self.mlm_logits(batch["mlm_input_ids"], batch, batch["mlm_positions"],
+                                      deterministic, rng)
+        ids2 = torch.cat([batch["input_ids"], batch["mlm_input_ids"]], dim=0)
+        hidden, pooled = self._backbone(ids2, batch, deterministic, rng, dup=True)
+        B = batch["input_ids"].shape[0]
+        return pooled[:B], self._logits(hidden[B:], batch["mlm_positions"])
+
+    def forward(self, batch_a, batch_b, deterministic: bool = True,
+                rng=None) -> PretrainForwardOutput:
+        z1, mlm_a = self._tower(batch_a, deterministic, rng)
+        z2, mlm_b = self._tower(batch_b, deterministic, rng)
+        return PretrainForwardOutput(z1, z2, mlm_a, mlm_b)

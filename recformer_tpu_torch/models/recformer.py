@@ -43,12 +43,16 @@ class RecformerModel(nn.Module):
         self.pooler = RecformerPooler(config)
 
     def forward(self, input_ids, attention_mask, global_attention_mask, token_type_ids,
-                item_position_ids, position_ids=None, deterministic: bool = True):
-        if not deterministic:
-            raise NotImplementedError("dropout (deterministic=False) arrives with the training slice")
+                item_position_ids, position_ids=None, deterministic: bool = True, rng=None):
+        """``deterministic=False`` applies dropout, drawn from ``rng`` (a
+        :class:`~recformer_tpu_torch.utils.rng.StepRNG`)."""
+        if deterministic:
+            rng = None
+        elif rng is None:
+            raise ValueError("deterministic=False needs an rng (utils.rng.StepRNG)")
         mask = merge_attention_masks(attention_mask, global_attention_mask)
-        x = self.embeddings(input_ids, token_type_ids, item_position_ids, position_ids)
-        x = self.encoder(x, mask)
+        x = self.embeddings(input_ids, token_type_ids, item_position_ids, position_ids, rng)
+        x = self.encoder(x, mask, rng)
         return x, self.pooler(mask, x)
 
 
@@ -56,7 +60,7 @@ class RecformerModel(nn.Module):
 def init_weights(module: nn.Module, config: RecformerConfig, generator: torch.Generator):
     """The JAX package's initialisers from an explicit generator: normal
     (0, initializer_range) for dense kernels and embedding tables, zero
-    biases, unit LayerNorm scales."""
+    biases (the MLM decoder bias included), unit LayerNorm scales."""
     std = config.initializer_range
     for m in module.modules():
         if isinstance(m, nn.Linear):
@@ -67,3 +71,6 @@ def init_weights(module: nn.Module, config: RecformerConfig, generator: torch.Ge
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
+    for name, p in module.named_parameters():
+        if name == "lm_head.bias":
+            p.zero_()

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded through ``ctypes``. A build
 happens at first use, into ``recformer_tpu_torch/_build/`` (listed in
-``.gitignore``), under a name that carries a hash of the source and flags,
-so an edited source rebuilds. Importing this module looks for nothing.
+``.gitignore``), under a name that carries a hash of the source, the shared
+headers and the flags, so an edit rebuilds. Importing this module looks for
+nothing.
 """
 
 from __future__ import annotations
@@ -18,19 +19,36 @@ from typing import Dict
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = {"band_attention_fwd": os.path.join(_HERE, "csrc", "band_attention_fwd.cu")}
+_CSRC = os.path.join(_HERE, "csrc")
+SOURCES = {name: os.path.join(_CSRC, f"{name}.cu")
+           for name in ("band_attention_fwd", "band_attention_bwd")}
+HEADERS = (os.path.join(_CSRC, "band_common.cuh"),)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures, by library name: (argtypes, restype)
+_U = ctypes.c_uint32
+_F = ctypes.c_float
+_DROPOUT = [_I, _U, _U, _F]  # on, seed, threshold, 1/(1-rate)
+# C signatures, by library name, then function name: (argtypes, restype)
 SIGNATURES = {
-    "band_attention_fwd": (
-        [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # dtype, 9 inputs, out
-         _I, _I, _I, _I, _I, _I,                       # B L H D G window
-         ctypes.c_float, _I, _P],                      # scale, fuse, stream
-        ctypes.c_int),
+    "band_attention_fwd": {
+        "band_attention_fwd": (
+            [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # dtype, 9 inputs, out
+             _I, _I, _I, _I, _I, _I,                       # B L H D G window
+             _F, _I, *_DROPOUT, _P],                       # scale, fuse, dropout, stream
+            _I),
+    },
+    "band_attention_bwd": {
+        "band_attention_bwd_tile": ([_I, _I, _I], _I),  # D G window
+        "band_attention_bwd": (
+            [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,      # dtype, 9 inputs
+             _P, _P, _P, _P, _P, _P,                       # dq dk dv dg stats ws
+             _I, _I, _I, _I, _I, _I,                       # B L H D G window
+             _F, _F, _I, *_DROPOUT, _P],                   # q/dq scales, fuse, dropout, stream
+            _I),
+    },
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -46,8 +64,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(SOURCES[name], "rb") as f:
-        h.update(f.read())
+    for path in (SOURCES[name], *HEADERS):
+        with open(path, "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
@@ -89,7 +108,8 @@ def load_library(name: str) -> ctypes.CDLL:
         if job is not None:
             _finish_build(name, job)
         lib = ctypes.CDLL(library_path(name))
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = SIGNATURES[name]
+        for fn_name, (argtypes, restype) in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes, fn.restype = argtypes, restype
         _LOADED[name] = lib
     return lib

@@ -15,8 +15,10 @@ the same public layout: q/k/v ``(B, L, H, D)``, an int mask ``(B, L)`` coded
 Rounding follows the JAX functions: a product that JAX asks for in float32
 (``preferred_element_type``) multiplies the compute-type operands in float32
 here; any other product accumulates in float32 and rounds once to the
-compute type, as XLA's dot does. Dropout is training work and has no place
-in these twins.
+compute type, as XLA's dot does. Training applies inverted dropout to the
+float32 probabilities (``dropout_rate``), drawn from an explicit
+``torch.Generator`` on the tensors' device: the same function as the JAX
+package's, with other random bits.
 """
 
 from __future__ import annotations
@@ -24,6 +26,16 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+
+
+def _prob_dropout(probs: torch.Tensor, rate: float, generator) -> torch.Tensor:
+    """Inverted dropout on attention probabilities (float32)."""
+    if rate <= 0.0:
+        return probs
+    if generator is None:
+        raise ValueError("dropout_rate > 0 requires a generator")
+    u = torch.rand(probs.shape, generator=generator, device=probs.device)
+    return torch.where(u < 1.0 - rate, probs / (1.0 - rate), 0.0)
 
 
 def _split_masks(mask: torch.Tensor):
@@ -67,7 +79,7 @@ def scatter_global_rows(out_g: torch.Tensor, mask: torch.Tensor, max_globals: in
 
 
 def _global_rows(q_g, k_g, v_g, mask, scale, dtype, max_globals: int = 1,
-                 compact: bool = False):
+                 dropout_rate: float = 0.0, generator=None, compact: bool = False):
     """Full-attention output of the global query rows, computed only at the
     (at most ``max_globals``) global positions. ``q_g`` is either the
     full-length ``(B, L, H, D)`` projection or already gathered at the
@@ -83,7 +95,7 @@ def _global_rows(q_g, k_g, v_g, mask, scale, dtype, max_globals: int = 1,
         qg_sel = q_g[_batch_index(gidx), gidx]  # (B, G, H, D)
     scores = _einsum32("bghd,bmhd->bhgm", qg_sel * scale, k_g)
     scores = torch.where(is_pad[:, None, None, :], NEG_INF, scores)
-    probs = torch.softmax(scores, dim=-1)
+    probs = _prob_dropout(torch.softmax(scores, dim=-1), dropout_rate, generator)
     out_g = _einsum32("bhgm,bmhd->bghd", probs.to(dtype), v_g).to(dtype)
     out_g = torch.where(gvalid[:, :, None, None], out_g, 0.0).to(dtype)
     if compact:
@@ -92,7 +104,8 @@ def _global_rows(q_g, k_g, v_g, mask, scale, dtype, max_globals: int = 1,
 
 
 def global_rows_thin(hidden, qg_sel, w_kg, b_kg, w_vg, b_vg, mask, dtype,
-                     max_globals: int = 1, compact: bool = False):
+                     max_globals: int = 1, dropout_rate: float = 0.0, generator=None,
+                     compact: bool = False):
     """Global-row attention without the full-length k_g/v_g projections:
 
         scores[l] = q_g . (hidden[l] @ W_kg)  =  hidden[l] . (W_kg^T q_g)
@@ -117,7 +130,8 @@ def global_rows_thin(hidden, qg_sel, w_kg, b_kg, w_vg, b_vg, mask, dtype,
     scores = _einsum32("ble,bghe->bhgl", hidden.to(dtype), r.to(dtype))
     scores = scores + sb.permute(0, 2, 1)[:, :, :, None]
     scores = torch.where(is_pad[:, None, None, :], NEG_INF, scores)
-    probs = torch.softmax(scores, dim=-1)  # (B, H, G, L)
+    probs = _prob_dropout(torch.softmax(scores, dim=-1), dropout_rate, generator)  # (B, H, G, L)
+    # out = (probs @ hidden) @ W_vg + b_vg * sum(probs)   [sum != 1 with dropout]
     t = _einsum32("bhgl,ble->bghe", probs.to(dtype), hidden.to(dtype)).to(dtype)
     out_g = torch.einsum("bghe,ehd->bghd", t.float(), w_vg_h)
     psum = probs.sum(dim=-1)  # (B, H, G)
@@ -130,8 +144,10 @@ def global_rows_thin(hidden, qg_sel, w_kg, b_kg, w_vg, b_vg, mask, dtype,
     return scatter_global_rows(out_g, mask, max_globals)
 
 
-def dense_attention(q, k, v, q_g, k_g, v_g, mask, window: int, g_out=None):
-    """O(L^2) oracle implementation."""
+def dense_attention(q, k, v, q_g, k_g, v_g, mask, window: int, dropout_rate: float = 0.0,
+                    generator=None, g_out=None):
+    """O(L^2) oracle implementation. Dropout draws the local rows' mask, then
+    the global rows', from ``generator``."""
     B, L, H, D = q.shape
     dt = q.dtype
     scale = attention_scale(D, dt, q.device)
@@ -149,24 +165,27 @@ def dense_attention(q, k, v, q_g, k_g, v_g, mask, window: int, g_out=None):
     probs = torch.softmax(scores, dim=-1)
     any_key = allowed.any(dim=-1)  # (B, L)
     probs = torch.where(any_key[:, None, :, None], probs, 0.0)
+    probs = _prob_dropout(probs, dropout_rate, generator)
     out = _einsum32("bhlm,bmhd->blhd", probs.to(dt), v).to(dt)
 
     if g_out is not None:
         pass  # precomputed global rows (global_rows_thin)
     elif q_g.shape[1] != L:
-        g_out = _global_rows(q_g, k_g, v_g, mask, scale, dt, q_g.shape[1])
+        g_out = _global_rows(q_g, k_g, v_g, mask, scale, dt, q_g.shape[1],
+                             dropout_rate, generator)
     else:
         # oracle path: global rows for every position, then select
         g_scores = _einsum32("blhd,bmhd->bhlm", q_g * scale, k_g)
         g_scores = torch.where(is_pad[:, None, None, :], NEG_INF, g_scores)
-        g_probs = torch.softmax(g_scores, dim=-1)
+        g_probs = _prob_dropout(torch.softmax(g_scores, dim=-1), dropout_rate, generator)
         g_out = _einsum32("bhlm,bmhd->blhd", g_probs.to(dt), v_g).to(dt)
     out = torch.where(is_global[:, :, None, None], g_out, out)
     return torch.where(is_pad[:, :, None, None], 0.0, out).to(dt)
 
 
 def chunked_attention(q, k, v, q_g, k_g, v_g, mask, window: int,
-                      block: int = 128, max_globals: int = 1, g_out=None):
+                      block: int = 128, max_globals: int = 1, dropout_rate: float = 0.0,
+                      generator=None, g_out=None):
     """Banded attention via sliding chunks, O(L * (block + window)); ``L``
     must be a multiple of ``block``. Normalises the probabilities before the
     cast to the compute type, as the JAX twin does."""
@@ -207,9 +226,10 @@ def chunked_attention(q, k, v, q_g, k_g, v_g, mask, window: int,
     g_scores = torch.where(gvalid[:, None, None, None, :], g_scores, NEG_INF)
 
     scores = torch.cat([band_scores, g_scores], dim=-1)
-    m = scores.amax(dim=-1, keepdim=True)
+    m = scores.amax(dim=-1, keepdim=True).detach()
     e = torch.exp(scores - m)
     probs = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    probs = _prob_dropout(probs, dropout_rate, generator)
     p_band, p_glob = probs[..., :band], probs[..., band:]
 
     out = _einsum32("bhntu,bnuhd->bnthd", p_band.to(dt), v_b).to(dt)
@@ -217,6 +237,7 @@ def chunked_attention(q, k, v, q_g, k_g, v_g, mask, window: int,
     out = out.reshape(B, L, H, D)
 
     if g_out is None:
-        g_out = _global_rows(q_g, k_g, v_g, mask, scale, dt, max_globals)
+        g_out = _global_rows(q_g, k_g, v_g, mask, scale, dt, max_globals,
+                             dropout_rate, generator)
     out = torch.where(is_global[:, :, None, None], g_out, out)
     return torch.where(is_pad[:, :, None, None], 0.0, out).to(dt)

@@ -1,6 +1,8 @@
 // Windowed + global attention forward for sm_90a, with a plain C interface
 // (loaded through ctypes by recformer_tpu_torch/ops/window_attention.py,
-// which holds the design note and the plain PyTorch version).
+// which holds the design note and the plain PyTorch version). Optional
+// attention dropout on the un-normalised exponentials uses the keep mask of
+// band_common.cuh, which the backward kernel regenerates.
 //
 // Operands, all row-major and contiguous:
 //   q, k, v, out : (B, L, H*D)   float or bf16
@@ -22,36 +24,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "band_common.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;  // not -inf: a fully masked row stays finite
-constexpr int kMaxSmem = 232448;   // bytes a block may use on sm_90 after the opt-in
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Value of x after a cast to the input type.
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+using band::Dropout;
+using band::from_float;
+using band::kMaxSmem;
+using band::kNegInf;
+using band::round_to;
+using band::to_float;
+using band::warp_max;
+using band::warp_sum;
 
 // ---------------------------------------------------------------------------
 // CUDA-core kernel: any D in {8,16,32,64,128}, any window, float or bf16
@@ -67,7 +51,7 @@ band_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const int32_t* __restrict__ gvalid,
                           const int32_t* __restrict__ mrow, const T* __restrict__ gout,
                           T* __restrict__ out, int L, int H, int G, int window,
-                          int tile_q, float scale, int fuse_epilogue) {
+                          int tile_q, float scale, int fuse_epilogue, Dropout drop) {
   constexpr int DP = D + 1;  // padded row stride (in floats) of the K/V band
   const int HD = H * D;
   const int half = window / 2;
@@ -149,11 +133,18 @@ band_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     mx = warp_max(mx);
 
     // the row sum takes the float32 exponentials; the product with V takes
-    // them after the cast to the input type
+    // them after dropout (kept ones scaled by 1/(1-rate)) and the cast to the
+    // input type
     float sum = 0.f;
     for (int c = lane; c < ncol; c += 32) {
-      const float e = expf(pw[c] - mx);
+      float e = expf(pw[c] - mx);
       sum += e;
+      if (drop.on) {
+        // columns off [0, L) carry no key and are never read below
+        const int col = c <= window ? i - half + c : L + c - window - 1;
+        if (c > window || (col >= 0 && col < L))
+          e = band::dropout_keep(drop, b, h, i, col) ? e * drop.scale : 0.f;
+      }
       pw[c] = round_to<T>(e);
     }
     const float denom = fmaxf(warp_sum(sum), 1e-30f);
@@ -188,7 +179,7 @@ template <typename T, int D>
 cudaError_t launch_simt(const void* q, const void* k, const void* v, const void* keyloc,
                         const void* gk, const void* gv, const void* gvalid, const void* mrow,
                         const void* gout, void* out, int B, int L, int H, int G, int window,
-                        float scale, int fuse, cudaStream_t stream) {
+                        float scale, int fuse, Dropout drop, cudaStream_t stream) {
   // the largest tile (up to 64 rows) whose band fits in shared memory
   int tile_q = 64;
   while (tile_q > 8 && simt_smem_bytes(tile_q, window, G, D) > kMaxSmem) tile_q /= 2;
@@ -205,7 +196,7 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, const void*
       static_cast<const int32_t*>(keyloc), static_cast<const T*>(gk),
       static_cast<const T*>(gv), static_cast<const int32_t*>(gvalid),
       static_cast<const int32_t*>(mrow), static_cast<const T*>(gout), static_cast<T*>(out),
-      L, H, G, window, tile_q, scale, fuse);
+      L, H, G, window, tile_q, scale, fuse, drop);
   return cudaGetLastError();
 }
 
@@ -214,11 +205,11 @@ cudaError_t dispatch_simt(int D, const void* q, const void* k, const void* v,
                           const void* keyloc, const void* gk, const void* gv,
                           const void* gvalid, const void* mrow, const void* gout, void* out,
                           int B, int L, int H, int G, int window, float scale, int fuse,
-                          cudaStream_t stream) {
+                          Dropout drop, cudaStream_t stream) {
 #define BAND_ATTN_CASE(DIM)                                                                \
   case DIM:                                                                                \
     return launch_simt<T, DIM>(q, k, v, keyloc, gk, gv, gvalid, mrow, gout, out, B, L, H, \
-                               G, window, scale, fuse, stream);
+                               G, window, scale, fuse, drop, stream);
   switch (D) {
     BAND_ATTN_CASE(8)
     BAND_ATTN_CASE(16)
@@ -291,7 +282,7 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                              const int32_t* __restrict__ mrow,
                              const __nv_bfloat16* __restrict__ gout,
                              __nv_bfloat16* __restrict__ out, int L, int H, int G, float scale,
-                             int fuse_epilogue) {
+                             int fuse_epilogue, Dropout drop) {
   using namespace tc;
   using bf16 = __nv_bfloat16;
   const int HD = H * D;
@@ -442,6 +433,34 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     denom[x] = fmaxf(sum[x], 1e-30f);
   }
 
+  // dropout on the exponentials after the row sum: kept ones scaled by
+  // 1/(1-rate). A thread's two band columns (lo + r0 + nt*8 + 2tq, +1) start
+  // at an even key, so they share one Philox draw.
+  if (drop.on) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int i = t0 + r0 + gq + 8 * x;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int j = lo + r0 + nt * 8 + 2 * tq;
+        if (j >= 0 && j < L) {
+          const uint4 w = band::dropout_words(drop, b, h, i, j);
+          sc[nt][2 * x] = band::keep_word(drop, w, j) ? sc[nt][2 * x] * drop.scale : 0.f;
+          if (j + 1 < L)
+            sc[nt][2 * x + 1] =
+                band::keep_word(drop, w, j + 1) ? sc[nt][2 * x + 1] * drop.scale : 0.f;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int g = 2 * tq + e;
+        if (g < G)
+          sg[2 * x + e] =
+              band::dropout_keep(drop, b, h, i, L + g) ? sg[2 * x + e] * drop.scale : 0.f;
+      }
+    }
+  }
+
   // out = P.V: the score tiles of 16 keys are, register for register, the
   // A fragments of the next product
   float o[D / 8][4];
@@ -501,7 +520,7 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* keyloc,
                       const void* gk, const void* gv, const void* gvalid, const void* mrow,
                       const void* gout, void* out, int B, int L, int H, int G, float scale,
-                      int fuse, cudaStream_t stream) {
+                      int fuse, Dropout drop, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(band_attention_fwd_tc_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM);
   if (err != cudaSuccess) return err;
@@ -512,7 +531,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* k
       static_cast<const int32_t*>(keyloc), static_cast<const bf16*>(gk),
       static_cast<const bf16*>(gv), static_cast<const int32_t*>(gvalid),
       static_cast<const int32_t*>(mrow), static_cast<const bf16*>(gout),
-      static_cast<bf16*>(out), L, H, G, scale, fuse);
+      static_cast<bf16*>(out), L, H, G, scale, fuse, drop);
   return cudaGetLastError();
 }
 
@@ -520,23 +539,27 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16. Dropout (band_common.cuh) is on when
+// ``dropout`` is non-zero. Returns the launch's cudaError_t.
 extern "C" int band_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                   const void* keyloc, const void* gk, const void* gv,
                                   const void* gvalid, const void* mrow, const void* gout,
                                   void* out, int B, int L, int H, int D, int G, int window,
-                                  float scale, int fuse_epilogue, void* stream) {
+                                  float scale, int fuse_epilogue, int dropout, uint32_t seed,
+                                  uint32_t threshold, float drop_scale, void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || G <= 0 || window <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout drop{seed, threshold, drop_scale, dropout != 0};
   if (dtype == 1 && D == tc::D && window == tc::W && G <= tc::GMAX && aligned16(q) &&
       aligned16(k) && aligned16(v) && aligned16(gk) && aligned16(gv))
     return (int)launch_tc(q, k, v, keyloc, gk, gv, gvalid, mrow, gout, out, B, L, H, G, scale,
-                          fuse_epilogue, s);
+                          fuse_epilogue, drop, s);
   if (dtype == 0)
     return (int)dispatch_simt<float>(D, q, k, v, keyloc, gk, gv, gvalid, mrow, gout, out, B,
-                                     L, H, G, window, scale, fuse_epilogue, s);
+                                     L, H, G, window, scale, fuse_epilogue, drop, s);
   if (dtype == 1)
     return (int)dispatch_simt<__nv_bfloat16>(D, q, k, v, keyloc, gk, gv, gvalid, mrow, gout,
-                                             out, B, L, H, G, window, scale, fuse_epilogue, s);
+                                             out, B, L, H, G, window, scale, fuse_epilogue,
+                                             drop, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,10 +6,11 @@
 Runs Recformer-base (random weights from ``--seed``, bf16 compute, the
 windowed-attention kernel) over ``--chunks`` item-encode chunks (256 items,
 L=128) and ``--batches`` eval batches (16 users, L=1024) under
-``torch.profiler``, after one warm-up of each. Prints one JSON line per
-task: wall time, device busy time (the union of kernel intervals), the
-device's idle share, and the top kernels by device time with their shares,
-then the card line from ``nvidia-smi``.
+``torch.profiler``, after one warm-up and one unprofiled timed run of each.
+Prints one JSON line per task: wall time with and without the profiler,
+device busy time (the union of kernel intervals), the device's idle share
+against each wall time, the kernels launched, and the top kernels by device
+time with their shares, then the card line from ``nvidia-smi``.
 """
 
 from __future__ import annotations
@@ -29,10 +30,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import synthetic_table  # noqa: E402
 
 
-def busy_ms(events) -> float:
+def device_kernels(events):
+    """The device-side events, without ``record_function`` ranges (such as
+    ``Optimizer.step``), which the profiler also puts on the device's
+    timeline but which are no kernels."""
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def busy_ms(kernels) -> float:
     """Union of the device kernels' [start, end) intervals, in ms."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     total, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
         if cur_e is None or s > cur_e:
@@ -46,29 +54,43 @@ def busy_ms(events) -> float:
     return total / 1e3  # us -> ms
 
 
-def profile(name, fn, top=15):
+def profile(name, fn, top=15, groups=None, per=1):
+    """Profile one call of ``fn`` after a warm-up call and one unprofiled
+    timed call (the profiler slows the host, so the idle share is given
+    against both wall times). ``groups`` maps a kernel name to a group whose
+    device time is summed; ``per`` divides the kernel count (kernels per
+    step)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     fn()  # warm-up
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    busy = busy_ms(events)
+    kernels = device_kernels(prof.events())
+    busy = busy_ms(kernels)
     by_kernel = {}
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    for e in kernels:
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     total = sum(by_kernel.values()) or 1.0
     rows = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]
-    print(json.dumps({
-        "task": name, "wall_ms": wall_ms, "device_busy_ms": busy,
-        "device_idle_share": 1.0 - busy / wall_ms, "kernel_ms_total": total,
-        "top_kernels": [{"name": k[:120], "ms": v, "share": v / total} for k, v in rows],
-    }), flush=True)
+    line = {"task": name, "wall_ms": wall_ms, "unprofiled_wall_ms": plain_wall_ms,
+            "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall_ms,
+            "device_idle_share_unprofiled": 1.0 - busy / plain_wall_ms,
+            "kernel_ms_total": total, "device_kernels": len(kernels) / per}
+    if groups is not None:
+        by_group = {}
+        for k, v in by_kernel.items():
+            by_group[groups(k)] = by_group.get(groups(k), 0.0) + v
+        line["by_group"] = {g: {"ms": v, "share": v / total} for g, v in by_group.items()}
+    line["top_kernels"] = [{"name": k[:120], "ms": v, "share": v / total} for k, v in rows]
+    print(json.dumps(line), flush=True)
 
 
 def main(argv=None) -> int:

@@ -1,8 +1,11 @@
 """The port's attention twins and windowed-attention kernel wrapper (its plain
-version, on the CPU) against the JAX package's functions, including the
-Pallas kernel in interpret mode. Inputs come from one numpy generator and go
-to both stacks; fp32, rtol = atol = 2e-5 (the JAX kernel tests' own)."""
+versions, on the CPU) against the JAX package's functions, including the
+Pallas kernels in interpret mode. Inputs come from one numpy generator and go
+to both stacks; fp32, rtol = atol = 2e-5 for outputs (the JAX kernel tests'
+own) and 1e-4 for gradients (``tests/test_pallas_attention.py``'s). Dropout
+is held by the same statistical tests as the JAX package's."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,9 +14,11 @@ import torch
 from recformer_tpu.ops import attention as jatt
 from recformer_tpu.ops.pallas_attention import pallas_window_attention
 from recformer_tpu_torch.ops import attention as tatt
+from recformer_tpu_torch.ops import window_attention as wa
 from recformer_tpu_torch.ops.window_attention import window_attention
 
 TOL = dict(rtol=2e-5, atol=2e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 
 # the cases of tests/test_pallas_attention.py
 CASES = {
@@ -136,20 +141,169 @@ def test_global_prefix_indices_match_jax():
         tatt.scatter_global_rows(out_g, torch.from_numpy(mask), 2).numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_window_attention_grads_match_pallas_interpret(case):
+    """Autograd through the band core's autograd function (the backward
+    kernel's plain version here) against jax.grad through the Pallas
+    backward kernel in interpret mode, for all six inputs."""
+    kw = CASES[case]
+    arrs, mask = make_inputs(4, **kw)
+    G = kw.get("max_globals", 1)
+    W = kw["window"]
+    w = np.random.default_rng(5).standard_normal(arrs[0].shape).astype(np.float32)
+
+    def jloss(*xs):
+        out = pallas_window_attention(*xs, jnp.asarray(mask), W, block_q=kw["block_q"],
+                                      max_globals=G, interpret=True)
+        return jnp.sum(out * w)
+
+    ref = jax.grad(jloss, argnums=tuple(range(6)))(*[jnp.asarray(a) for a in arrs])
+    leaves = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    out = window_attention(*leaves, torch.from_numpy(mask), W, max_globals=G)
+    (out * torch.from_numpy(w)).sum().backward()
+    for name, leaf, r in zip(("q", "k", "v", "q_g", "k_g", "v_g"), leaves, ref):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(r), err_msg=name, **GRAD_TOL)
+
+
+BWD_CASES = {
+    "w16": dict(window=16),
+    "window_gt_tile": dict(window=32),
+    "two_globals_unfused": dict(window=8, extra_global=True, max_globals=2),
+    "d64_ragged_L": dict(L=200, H=2, D=64, window=64, n_pad=(0, 50)),
+}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_bwd_plain_matches_autograd_of_fwd_plain(case, rate):
+    """The backward kernel's plain version against torch autograd of the
+    forward's plain version, one seed, so one dropout mask: the forward and
+    backward masks agree."""
+    kw = dict(BWD_CASES[case])
+    G = kw.pop("max_globals", 1)
+    window = kw.pop("window")
+    arrs, mask = make_inputs(6, **kw)
+    B, L, H, D = arrs[0].shape
+    t = [torch.from_numpy(a) for a in arrs]
+    _, ops = wa.prepare_band_inputs(t[0], t[1], t[2], torch.from_numpy(mask), G)
+    ops["gout"] = torch.from_numpy(
+        np.random.default_rng(7).standard_normal((B, G, H * D)).astype(np.float32))
+    fuse = G == 1
+    common = dict(num_heads=H, window=window, fuse_epilogue=fuse, dropout_rate=rate, seed=99)
+    names = ("q2", "k2", "v2", "gk", "gv", "gout")
+    leaves = {n: ops[n].clone().requires_grad_() for n in names}
+    out = wa.window_attention_plain(**dict(ops, **leaves), **common)
+    dout = torch.from_numpy(np.random.default_rng(8).standard_normal(out.shape).astype(np.float32))
+    if not fuse:  # the wrapper zeroes the gradient at global and padding rows
+        dout = torch.where(ops["mrow"][:, :, None] == 1, dout, 0.0)
+    out.backward(dout)
+    got = wa.window_attention_bwd_plain(**ops, dout=dout, **common)
+    for n, g in zip(names, got):
+        want = leaves[n].grad if leaves[n].grad is not None else torch.zeros_like(g)
+        np.testing.assert_allclose(g.numpy(), want.numpy(), err_msg=n, **GRAD_TOL)
+
+
+def test_dropout_keep_is_one_function_of_absolute_coordinates():
+    """The keep mask of a column depends on (seed, b, h, i, c) only, keeps
+    about 1 - rate, and its Philox words match the reference's known answer
+    (Random123's philox4x32_10 test vector for counter 0, key 0)."""
+    zero = torch.zeros((), dtype=torch.int64)
+    words = wa.philox4x32_10(zero, zero, zero, zero, 0, 0)
+    assert [int(x) for x in words] == [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
+    B, L, H, G, W = 2, 96, 3, 1, 16
+    full = wa._keep_mask(5, 0.25, B, L, H, W, G, "cpu")
+    i, c = 40, 45
+    single = wa.dropout_keep(5, 0.25, torch.tensor(1), torch.tensor(2), torch.tensor(i),
+                             torch.tensor(c))
+    assert bool(single) == bool(full[1, i, 2, c - (i - W // 2)])
+    frac = float(wa._keep_mask(5, 0.25, 4, 512, 4, 64, 1, "cpu").float().mean())
+    assert abs(frac - 0.75) < 0.005
+    assert not torch.equal(full, wa._keep_mask(6, 0.25, B, L, H, W, G, "cpu"))
+
+
+def _run_impl(impl, ta, tm, window, rate=0.0, seed=0):
+    rng = torch.Generator().manual_seed(seed)
+    if impl == "dense":
+        return tatt.dense_attention(*ta, tm, window, rate, rng)
+    if impl == "chunked":
+        return tatt.chunked_attention(*ta, tm, window, block=16, dropout_rate=rate, generator=rng)
+    return window_attention(*ta, tm, window, dropout_rate=rate, generator=rng,
+                            host_generator=rng)
+
+
+IMPLS = ["dense", "chunked", "kernel_plain"]
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_dropout_deterministic_per_seed_and_off_by_default(impl):
+    ta, tm = to_torch(*make_inputs(7))
+    clean = _run_impl(impl, ta, tm, 8)
+    d1 = _run_impl(impl, ta, tm, 8, 0.5, seed=1)
+    d2 = _run_impl(impl, ta, tm, 8, 0.5, seed=1)
+    d3 = _run_impl(impl, ta, tm, 8, 0.5, seed=2)
+    np.testing.assert_array_equal(d1.numpy(), d2.numpy())
+    assert not np.allclose(d1.numpy(), d3.numpy())
+    assert not np.allclose(d1.numpy(), clean.numpy())
+    # the global row is dropped too
+    assert not np.allclose(d1[:, 0].numpy(), clean[:, 0].numpy())
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_dropout_is_unbiased(impl):
+    """Inverted dropout: the mean over 256 seeds of the dropped output is the
+    clean output; padding rows stay exactly zero."""
+    ta, tm = to_torch(*make_inputs(8, L=32, n_pad=(0, 5)))
+    clean = _run_impl(impl, ta, tm, 8).numpy()
+    mean = np.mean([_run_impl(impl, ta, tm, 8, 0.3, seed=s).numpy() for s in range(256)],
+                   axis=0)
+    np.testing.assert_array_equal(mean[1, -5:], 0.0)
+    np.testing.assert_allclose(mean, clean, atol=0.15)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_dropout_grads_flow(impl):
+    ta, tm = to_torch(*make_inputs(9))
+    leaves = [a.clone().requires_grad_() for a in ta[:3]]
+    out = _run_impl(impl, leaves + ta[3:], tm, 8, 0.5, seed=3)
+    (out ** 2).sum().backward()
+    for leaf in leaves:
+        assert torch.isfinite(leaf.grad).all() and leaf.grad.abs().sum() > 0
+
+
 def test_window_attention_refuses_dropout():
+    """The kernel wrapper refuses dropout without a host generator for the
+    kernel's seed; given one, dropout runs and changes the output."""
     (ta, tm) = to_torch(*make_inputs(3))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="host_generator"):
         window_attention(*ta, tm, 8, dropout_rate=0.1)
+    g = torch.Generator().manual_seed(0)
+    out = window_attention(*ta, tm, 8, dropout_rate=0.1, generator=g, host_generator=g)
+    assert torch.isfinite(out).all()
+    assert not torch.equal(out, window_attention(*ta, tm, 8))
 
 
 def test_forward_refuses_dropout():
+    """The backbone refuses ``deterministic=False`` without an rng; given
+    one, dropout runs, the same seed twice gives the same output."""
     from recformer_tpu_torch.config import RecformerConfig
-    from recformer_tpu_torch.models.recformer import RecformerModel
+    from recformer_tpu_torch.models.recformer import RecformerModel, init_weights
+    from recformer_tpu_torch.utils.rng import StepRNG
 
-    model = RecformerModel(RecformerConfig.tiny(dtype="float32"))
-    ids = torch.zeros((1, 32), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        model(ids, ids, ids, ids, ids, deterministic=False)
+    cfg = RecformerConfig.tiny(dtype="float32", attention_impl="pallas")
+    model = RecformerModel(cfg)
+    init_weights(model, cfg, torch.Generator().manual_seed(0))
+    ids = torch.randint(4, 100, (2, 32), generator=torch.Generator().manual_seed(1))
+    att = torch.ones_like(ids)
+    glb = torch.zeros_like(ids)
+    glb[:, 0] = 1
+    args = (ids, att, glb, torch.zeros_like(ids), torch.zeros_like(ids))
+    with pytest.raises(ValueError, match="rng"):
+        model(*args, deterministic=False)
+    clean, _ = model(*args)
+    d1, _ = model(*args, deterministic=False, rng=StepRNG(3))
+    d2, _ = model(*args, deterministic=False, rng=StepRNG(3))
+    assert torch.isfinite(d1).all()
+    assert torch.equal(d1, d2) and not torch.equal(d1, clean)
 
 
 def test_entry_points_refuse_missing_cuda(tmp_path):

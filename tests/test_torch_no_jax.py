@@ -40,8 +40,9 @@ def test_sources_name_no_jax():
     bad_import = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|recformer_tpu)\b", re.M)
     jax_package = re.compile(r"\brecformer_tpu\.")
     sources = [os.path.join(d, f) for d, _, fs in os.walk(PKG_DIR) for f in fs
-               if f.endswith((".py", ".cu")) and "_build" not in d.split(os.sep)]
-    sources.append(os.path.join(REPO, "chip_smoke.py"))
+               if f.endswith((".py", ".cu", ".cuh")) and "_build" not in d.split(os.sep)]
+    sources += [os.path.join(REPO, p) for p in (
+        "chip_smoke.py", "scripts/profile_torch_serving.py", "scripts/profile_torch_pretrain.py")]
     assert len(sources) > 20
     for path in sources:
         with open(path) as f:
