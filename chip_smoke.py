@@ -8,35 +8,52 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
 1. environment: the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of the paths, from the repository's sources, one
    ``nvcc`` per source, all started together;
-3. kernel_check: both kernels against their plain PyTorch versions on the
-   same inputs, at the shapes of the JAX kernel tests and at the two
+3. kernel_check: both attention kernels against their plain PyTorch versions
+   on the same inputs, at the shapes of the JAX kernel tests and at the two
    Recformer-base shapes, float32 and bfloat16, attention dropout 0 and 0.1
    (one seed): the forward on max abs error (<= 1e-4 / 2e-2), each of the
    backward's six outputs on max|err| / max|ref| (<= 1e-4 / 1e-2);
 4. dropout_check: at the sequence tower's shape, determinism per seed, the
    keep fraction (0.9 +- 0.005), mean-field unbiasedness over 64 seeds and
    forward/backward mask agreement (a directional derivative along v);
-5. kernel_time: both kernels, their plain versions and one PyTorch library
-   call (``scaled_dot_product_attention`` with an explicit band+global mask,
-   and its backward) at the base shapes, median of per-launch CUDA-event
-   times, beside the least time the card could take for the same work;
-6. serving: Recformer-base (random weights from ``--seed``) encodes a
+5. kernel_time: both attention kernels, their plain versions and one
+   PyTorch library call (``scaled_dot_product_attention`` with an explicit
+   band+global mask, and its backward) at the base shapes, median of
+   per-launch CUDA-event times, beside the least time the card could take;
+6. ln_kernel_check: the embedding LayerNorm forward and backward and the
+   LayerNorm backward against their plain versions at the main path's rows
+   (16,384, 2,048 and 32,768 of 768), 1,000 rows and a narrow row of 64,
+   float32 and bfloat16: the forward on max abs error (<= 1e-5) or one bf16
+   ulp, dx/dgamma/dbeta on max|err| / max|ref| (<= 1e-4 / 1e-2), and
+   dgamma/dbeta bitwise equal over two calls;
+7. ln_kernel_time: the three at their main-path shapes beside their plain
+   versions, ``F.layer_norm`` (forward, or its autograd backward) and the
+   bound;
+8. serving: Recformer-base (random weights from ``--seed``) encodes a
    synthetic 10,000-item catalog, ranks it for 256 users, and the serve CLI
    answers a few users;
-7. pretrain_step: 20 base-width pretraining steps at batch 8 (two views,
-   fused clean+MLM towers, dropout 0.1, AdamW), steps/s, the whole-word MLM's
-   time, peak memory; then 10 steps on one fixed batch with dropout off,
-   whose loss must fall;
-8. pretrain_vs_chunked: the float32 gradients of one deterministic step
-   through the kernels and through the plain chunked attention: cosine >
-   0.999, and each attention projection's gradient within 1e-3 relative;
-9. pretrain_cli: ``cli.pretrain --model_size base --device cuda`` on a small
-   corpus (accumulation 2, dev validation, best and last saved).
+9. encode_embed_kernel: 2,048 items encoded under ``embed_ln_impl='pallas'``,
+   pooled cosine against the default path > 0.999;
+10. pretrain_step: 20 base-width pretraining steps at batch 8 (two views,
+    fused clean+MLM towers, dropout 0.1, AdamW), steps/s, the whole-word
+    MLM's time, peak memory; then 10 steps on one fixed batch with dropout
+    off, whose loss must fall; pretrain_step_ln_kernels: the same under
+    ``embed_ln_impl='pallas'`` and ``ln_impl='pallas_bwd'``, beside it;
+    pretrain_turns: both configurations timed in alternating blocks;
+11. pretrain_vs_chunked and pretrain_ln_kernels_vs_plain: the float32
+    gradients of one deterministic step through the attention kernels
+    against the plain chunked attention, and through the LayerNorm kernels
+    against the plain split LayerNorm: cosine > 0.999, and each attention
+    projection's (each LayerNorm parameter's) gradient within 1e-3 relative;
+12. pretrain_cli, pretrain_cli_ln_impl: ``cli.pretrain --model_size base
+    --device cuda`` on a small corpus (accumulation 2, dev validation, best
+    and last saved), then again with ``--ln_impl pallas_bwd``.
 
 Launch counts, set to 0 just before each path and read just after, show that
-the paths ran the kernels. Then the kernels line, the card line and, last,
-the result line. Without CUDA, or without the package beside it, the script
-exits non-zero and prints no result.
+the paths ran the kernels, as many times as the code says they must. Then
+the kernels line, the card line and, last, the result line. Without CUDA, or
+without the package beside it, the script exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -401,6 +418,204 @@ def time_kernels(gen, card):
 
 
 # ---------------------------------------------------------------------------
+# the LayerNorm kernels: checks and times
+# ---------------------------------------------------------------------------
+
+LN_EPS = 1e-5  # RecformerConfig.layer_norm_eps
+LN_FWD_TOL = 1e-5  # float32 forward, max abs; bf16: one bf16 ulp of each reference element,
+# taken no finer than at LN_ULP_FLOOR: below it an output is a cancellation
+# x_hat * gamma ~ -beta whose float32 rounding (~1e-7 absolute, the row
+# means summed in another order) is larger than its own bf16 ulp
+LN_ULP_FLOOR = 2.0 ** -8
+# (rows, H): the pretraining towers (2B x 1024 and 2B x 128 at batch 8), the
+# encode chunk (256 x 128), a row count no power of two divides, a narrow row
+LN_SHAPES = {"sequence_tower": (16384, 768), "item_tower": (2048, 768),
+             "encode_chunk": (32768, 768), "ragged_rows": (1000, 768), "narrow": (1000, 64)}
+LN_KERNELS = ("embed_layernorm_fwd", "embed_layernorm_bwd", "layernorm_bwd")
+
+
+def graph_launch_ms(fn, n: int = 25) -> float:
+    """Device time per call: ``n`` calls captured in one CUDA graph and
+    replayed (median of 5 replays), so the host's launch overhead between
+    calls is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return float(np.median(times))
+
+
+def bf16_ulp(ref):
+    """One bf16 ulp of each element of ``ref`` (2**(e - 8) for |ref| in
+    [2**(e-1), 2**e))."""
+    _, e = torch.frexp(ref.float())
+    return torch.ldexp(torch.ones_like(ref, dtype=torch.float32), e - 8)
+
+
+def ln_case(gen, M, H, dtype):
+    """Inputs of the three LayerNorm kernels: four addends, a block input,
+    float32 gamma/beta near their initial values, dout."""
+    dev = torch.device("cuda")
+
+    def r(scale):
+        return torch.randn(M, H, generator=gen, device=dev) * scale
+
+    adds = [r(0.5).to(dtype) for _ in range(4)]
+    x = r(2.0).to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn(H, generator=gen, device=dev)
+    beta = 0.1 * torch.randn(H, generator=gen, device=dev)
+    return adds, x, gamma, beta, r(1.0).to(dtype)
+
+
+def check_ln_bwd(kernel, case, dtype, got, again, want):
+    """One backward kernel's (dx, dgamma, dbeta) against its plain version,
+    each on max|err| / max|ref|, and dgamma/dbeta bitwise equal over two
+    calls."""
+    errs = {n: rel_err(g, w) for n, g, w in zip(("dx", "dgamma", "dbeta"), got, want)}
+    abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    stable = bool(torch.equal(got[1], again[1]) and torch.equal(got[2], again[2]))
+    ok = (all(bool(torch.isfinite(g.float()).all()) for g in got) and stable
+          and max(errs.values()) <= BWD_TOL[dtype])
+    emit("ln_kernel_check", kernel=kernel, case=case, dtype=str(dtype).removeprefix("torch."),
+         rows=got[0].shape[0], H=got[0].shape[1], rel_err=errs, max_abs_err=abs_err,
+         tol_rel=BWD_TOL[dtype], bitwise_stable=stable, ok=ok)
+    if not ok:
+        raise AssertionError(f"{kernel} disagrees with its plain version: {case} {dtype} "
+                             f"{errs}, stable {stable}")
+    return abs_err
+
+
+def check_ln_kernels(gen):
+    """Kernels 3-5 against their plain versions on the card, float32 and
+    bf16, at LN_SHAPES. Returns {(kernel, case, dtype): max abs error}."""
+    from recformer_tpu_torch.ops import embed_layernorm as tel
+    from recformer_tpu_torch.ops import layernorm as tln
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case, (M, H) in LN_SHAPES.items():
+            adds, x, gamma, beta, dout = ln_case(gen, M, H, dtype)
+            out = tel.embed_layernorm_fwd(*adds, gamma, beta, LN_EPS)
+            torch.cuda.synchronize()
+            ref = tel.embed_layernorm_plain(*adds, gamma, beta, LN_EPS)
+            diff = (out.float() - ref.float()).abs()
+            err = float(diff.max())
+            ok = bool(torch.isfinite(out.float()).all()) and (
+                err <= LN_FWD_TOL if dtype == torch.float32
+                else bool((diff <= bf16_ulp(ref.float().abs().clamp_min(LN_ULP_FLOOR))).all()))
+            emit("ln_kernel_check", kernel="embed_layernorm_fwd", case=case,
+                 dtype=str(dtype).removeprefix("torch."), rows=M, H=H, max_abs_err=err,
+                 tol=LN_FWD_TOL if dtype == torch.float32
+                 else f"one bf16 ulp of max(|ref|, {LN_ULP_FLOOR})",
+                 differing_share=float((diff > 0).float().mean()), ok=ok)
+            if not ok:
+                raise AssertionError(f"embed_layernorm_fwd disagrees: {case} {dtype} {err}")
+            errs[("embed_layernorm_fwd", case, dtype)] = err
+
+            got = tel.embed_layernorm_bwd(*adds, gamma, dout, LN_EPS)
+            again = tel.embed_layernorm_bwd(*adds, gamma, dout, LN_EPS)
+            torch.cuda.synchronize()
+            want = tel.embed_layernorm_bwd_plain(*adds, gamma, dout, LN_EPS)
+            errs[("embed_layernorm_bwd", case, dtype)] = check_ln_bwd(
+                "embed_layernorm_bwd", case, dtype, got, again, want)
+
+            g = gamma.to(dtype)  # the caller's rounding, as in the JAX VJP
+            got = tln.layernorm_bwd(x, g, dout, LN_EPS)
+            again = tln.layernorm_bwd(x, g, dout, LN_EPS)
+            torch.cuda.synchronize()
+            want = tln.layernorm_bwd_plain(x, g, dout, LN_EPS)
+            errs[("layernorm_bwd", case, dtype)] = check_ln_bwd(
+                "layernorm_bwd", case, dtype, got, again, want)
+            del adds, x, dout, out, ref, diff, got, again, want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def layer_norm_bwd_call(x, gamma, beta, dout):
+    """The autograd backward of ``F.layer_norm`` (native_layer_norm_backward:
+    dx, dgamma and dbeta in one call), weights in the input's type."""
+    H = x.shape[1]
+    args = [x.detach().requires_grad_(), gamma.to(x.dtype).requires_grad_(),
+            beta.to(x.dtype).requires_grad_()]
+    y = torch.nn.functional.layer_norm(args[0], (H,), args[1], args[2], LN_EPS)
+    return lambda: torch.autograd.grad(y, args, dout, retain_graph=True)
+
+
+def time_ln_kernels(gen, card):
+    """Kernels 3-5 at their main-path shapes (bf16, H = 768): median of 25
+    back-to-back calls from the host (``ms``) and the device time per launch
+    from a CUDA graph of 25 (``graph_ms``; at 2,048 rows the host's call
+    takes longer than the kernel), the plain version, one PyTorch library
+    call and the bound
+    (the bytes each input read once and each output written once, over the
+    HBM rate; the flops, ~10-20 an element in float32, are far below it)."""
+    from recformer_tpu_torch.ops import embed_layernorm as tel
+    from recformer_tpu_torch.ops import layernorm as tln
+
+    F = torch.nn.functional
+    dtype, H = torch.bfloat16, 768
+    rows = {k: {} for k in LN_KERNELS}
+    for case in ("sequence_tower", "item_tower", "encode_chunk"):
+        M = LN_SHAPES[case][0]
+        adds, x, gamma, beta, dout = ln_case(gen, M, H, dtype)
+        n, elt = M * H, 2
+        xsum = adds[0] + adds[1] + adds[2] + adds[3]
+        g = gamma.to(dtype)  # kernel 5's caller rounds gamma first
+        timed = {
+            "embed_layernorm_fwd": (
+                lambda: tel.embed_layernorm_fwd(*adds, gamma, beta, LN_EPS),
+                lambda: tel.embed_layernorm_plain(*adds, gamma, beta, LN_EPS),
+                lambda: F.layer_norm(xsum, (H,), gamma.to(dtype), beta.to(dtype), LN_EPS),
+                "F.layer_norm on the pre-summed input (leaves out the four-way sum)",
+                5 * n * elt + 2 * H * 4, 10 * n),
+            "embed_layernorm_bwd": (
+                lambda: tel.embed_layernorm_bwd(*adds, gamma, dout, LN_EPS),
+                lambda: tel.embed_layernorm_bwd_plain(*adds, gamma, dout, LN_EPS),
+                layer_norm_bwd_call(xsum, gamma, beta, dout),
+                "autograd backward of F.layer_norm on the pre-summed input "
+                "(native_layer_norm_backward; leaves out the sum)",
+                6 * n * elt + 3 * H * 4, 20 * n),
+            "layernorm_bwd": (
+                lambda: tln.layernorm_bwd(x, g, dout, LN_EPS),
+                lambda: tln.layernorm_bwd_plain(x, g, dout, LN_EPS),
+                layer_norm_bwd_call(x, gamma, beta, dout),
+                "autograd backward of F.layer_norm (native_layer_norm_backward)",
+                3 * n * elt + 3 * H * 4, 16 * n),
+        }
+        if case == "encode_chunk":  # the serving forward runs kernel 3 alone
+            timed = {"embed_layernorm_fwd": timed["embed_layernorm_fwd"]}
+        for name, (kernel, plain, library, library_call, nbytes, flops) in timed.items():
+            kernel_ms = median_launch_ms(kernel)
+            device_ms = graph_launch_ms(kernel)
+            plain_ms = median_launch_ms(plain, n=10, warmup=1)
+            library_ms = median_launch_ms(library)
+            b_ms, b_by = bound(nbytes, flops, torch.float32)
+            rows[name][case] = dict(rows=M, H=H, dtype="bfloat16", ms=kernel_ms,
+                                    graph_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+                                    library_call=library_call, bound_ms=b_ms, bound_by=b_by,
+                                    bytes=nbytes, operations=flops, card=card)
+            emit("ln_kernel_time", kernel=name, case=case, **rows[name][case])
+        del adds, x, dout, xsum, timed
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # the serving path at full base width
 # ---------------------------------------------------------------------------
 
@@ -519,7 +734,7 @@ def run_serving(seed, card):
                              f"expected {n_layers * serve_forwards}")
     emit("serving_cli", users=n, launches=serve_launches, forwards=serve_forwards,
          first=rows[0])
-    return enc_launches + eval_launches + serve_launches
+    return {"band_attention_fwd": enc_launches + eval_launches + serve_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -539,20 +754,55 @@ def pretrain_world(cfg, seed, n_items=10_000, batch=8):
     return table, item_ids.to(dev), seq_lens.to(dev)
 
 
-def run_pretrain_step(seed, card):
+KERNELS = ("band_attention_fwd", "band_attention_bwd") + LN_KERNELS
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0."""
+    from recformer_tpu_torch.ops import embed_layernorm as tel
+    from recformer_tpu_torch.ops import layernorm as tln
+    from recformer_tpu_torch.ops import window_attention as wa
+
+    wa.LAUNCHES = wa.BWD_LAUNCHES = tel.LAUNCHES = tel.BWD_LAUNCHES = tln.BWD_LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    """Every kernel's launch count since the last reset, by kernel name."""
+    from recformer_tpu_torch.ops import embed_layernorm as tel
+    from recformer_tpu_torch.ops import layernorm as tln
+    from recformer_tpu_torch.ops import window_attention as wa
+
+    return dict(zip(KERNELS, (wa.LAUNCHES, wa.BWD_LAUNCHES, tel.LAUNCHES, tel.BWD_LAUNCHES,
+                              tln.BWD_LAUNCHES)))
+
+
+def launches_per_step(cfg) -> dict:
+    """Launches of each kernel one pretraining step makes, by reading the
+    code: two towers, each one fused (2B, L) forward and its backward; the
+    attention kernels once per layer, the embedding kernels once per tower,
+    the LayerNorm backward twice per layer (the attention and feed-forward
+    blocks); the LM head's LayerNorm is flax's under every flag."""
+    towers, layers = 2, cfg.num_hidden_layers
+    emb = towers if cfg.embed_ln_impl == "pallas" else 0
+    return {"band_attention_fwd": towers * layers, "band_attention_bwd": towers * layers,
+            "embed_layernorm_fwd": emb, "embed_layernorm_bwd": emb,
+            "layernorm_bwd": 2 * towers * layers if cfg.ln_impl == "pallas_bwd" else 0}
+
+
+def run_pretrain_step(seed, card, phase="pretrain_step", baseline=None, **flags):
     """20 timed base-width pretraining steps (after 2 warm-up steps) with
-    dropout 0.1, launch counts per step, then 10 steps on one fixed batch
-    with dropout off, whose loss must fall."""
+    dropout 0.1 under ``RecformerConfig.base(**flags)``, launch counts per
+    step, then 10 steps on one fixed batch with dropout off, whose loss must
+    fall. Returns the launch counts and the rates."""
     from recformer_tpu_torch.cli.common import init_model_params
     from recformer_tpu_torch.config import RecformerConfig
     from recformer_tpu_torch.data.device_pipeline import make_pretrain_batch, mlm_for_config
     from recformer_tpu_torch.models.heads import RecformerForPretraining
-    from recformer_tpu_torch.ops import window_attention as wa
     from recformer_tpu_torch.training.optimizer import create_optimizer
     from recformer_tpu_torch.training.steps import make_pretrain_step
     from recformer_tpu_torch.utils.rng import StepRNG
 
-    cfg = RecformerConfig.base()
+    cfg = RecformerConfig.base(**flags)
     assert cfg.fuse_mlm_pass and cfg.attention_probs_dropout_prob == 0.1
     B = 8
     table, item_ids, seq_lens = pretrain_world(cfg, seed, batch=B)
@@ -566,31 +816,36 @@ def run_pretrain_step(seed, card):
 
     n = 20
     torch.cuda.reset_peak_memory_stats()
-    wa.LAUNCHES = wa.BWD_LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     metrics = [step(rng, table, item_ids, seq_lens) for _ in range(n)]
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    fwd, bwd = wa.LAUNCHES, wa.BWD_LAUNCHES
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = [float(m["loss"]) for m in metrics]
-    per_step = 2 * cfg.num_hidden_layers  # two towers, one fused (2B, L) forward each
-    ok = (fwd == per_step * n and bwd == per_step * n
+    expected = launches_per_step(cfg)
+    ok = (all(counts[k] == expected[k] * n for k in KERNELS)
           and all(math.isfinite(x) for x in losses))
-
-    # what the whole-word MLM (its greedy selection included) costs a step
-    ba, bb = make_pretrain_batch(rng.device, table, item_ids, seq_lens, cfg)
-    mlm_ms = median_launch_ms(lambda: (mlm_for_config(rng.device, ba, cfg),
-                                       mlm_for_config(rng.device, bb, cfg)), n=10, warmup=2)
-    emit("pretrain_step", config="RecformerConfig.base()", batch=B,
-         views=[[2 * B, cfg.max_token_num], [2 * B, cfg.item_seq_len]], steps=n,
-         seconds=secs, steps_per_s=n / secs, examples_per_s=B * n / secs,
-         mlm_selection_ms_per_step=mlm_ms, peak_memory_gib=peak / 2 ** 30,
-         fwd_launches_per_step=fwd / n, bwd_launches_per_step=bwd / n,
+    rates = dict(steps_per_s=n / secs, examples_per_s=B * n / secs,
+                 peak_memory_gib=peak / 2 ** 30)
+    extra = {}
+    if baseline is None:
+        # what the whole-word MLM (its greedy selection included) costs a step
+        ba, bb = make_pretrain_batch(rng.device, table, item_ids, seq_lens, cfg)
+        extra["mlm_selection_ms_per_step"] = median_launch_ms(
+            lambda: (mlm_for_config(rng.device, ba, cfg), mlm_for_config(rng.device, bb, cfg)),
+            n=10, warmup=2)
+    else:
+        extra["default_config"] = baseline
+    emit(phase, config=f"RecformerConfig.base({', '.join(f'{k}={v!r}' for k, v in flags.items())})",
+         batch=B, views=[[2 * B, cfg.max_token_num], [2 * B, cfg.item_seq_len]], steps=n,
+         seconds=secs, **rates, **extra,
+         launches_per_step={k: counts[k] / n for k in KERNELS}, expected_per_step=expected,
          loss_first=losses[0], loss_last=losses[-1], card=card, ok=ok)
     if not ok:
-        raise AssertionError(f"pretrain step: launches {fwd}/{bwd} over {n} steps "
-                             f"(expected {per_step * n} each), losses {losses}")
+        raise AssertionError(f"{phase}: launches {counts} over {n} steps (expected "
+                             f"{expected} each step), losses {losses}")
 
     # one fixed batch, dropout off: the same generator state each step
     cfg0 = cfg.replace(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
@@ -600,27 +855,64 @@ def run_pretrain_step(seed, card):
     fixed = [float(step0(StepRNG(seed + 5, "cuda"), table, item_ids, seq_lens)["loss"])
              for _ in range(10)]
     falls = all(math.isfinite(x) for x in fixed) and np.mean(fixed[-3:]) < np.mean(fixed[:3])
-    emit("pretrain_fixed_batch", steps=10, dropout=0.0, losses=fixed, falls=bool(falls),
-         ok=bool(falls))
+    fixed_phase = "pretrain_fixed_batch" if baseline is None else f"{phase}_fixed_batch"
+    emit(fixed_phase, steps=10, dropout=0.0, losses=fixed, falls=bool(falls), ok=bool(falls))
     if not falls:
-        raise AssertionError(f"fixed-batch loss did not fall: {fixed}")
+        raise AssertionError(f"{fixed_phase}: loss did not fall: {fixed}")
     del model, model0, opt, opt0
     torch.cuda.empty_cache()
-    return fwd, bwd
+    return counts, rates
+
+
+def run_pretrain_turns(seed, card, blocks=("default", "ln_kernels", "ln_kernels", "default"),
+                       steps=10):
+    """The default configuration and the LayerNorm kernels' configuration
+    timed in turns in one process (``blocks`` of ``steps`` steps each, after
+    2 warm-up steps of each), so that drift over the call falls on both."""
+    from recformer_tpu_torch.cli.common import init_model_params
+    from recformer_tpu_torch.config import RecformerConfig
+    from recformer_tpu_torch.models.heads import RecformerForPretraining
+    from recformer_tpu_torch.training.optimizer import create_optimizer
+    from recformer_tpu_torch.training.steps import make_pretrain_step
+    from recformer_tpu_torch.utils.rng import StepRNG
+
+    flags = {"default": {}, "ln_kernels": dict(embed_ln_impl="pallas", ln_impl="pallas_bwd")}
+    runs = {}
+    for name, fl in flags.items():
+        cfg = RecformerConfig.base(**fl)
+        table, item_ids, seq_lens = pretrain_world(cfg, seed)
+        model = init_model_params(RecformerForPretraining(cfg), cfg, device="cuda", seed=seed)
+        opt = create_optimizer(model, learning_rate=5e-5, warmup_steps=1000, total_steps=10_000)
+        runs[name] = (make_pretrain_step(cfg, model, opt), StepRNG(seed, "cuda"),
+                      table, item_ids, seq_lens)
+        for _ in range(2):
+            runs[name][0](*runs[name][1:])
+    torch.cuda.synchronize()
+    rates = []
+    for name in blocks:
+        step, *args = runs[name]
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(*args)
+        torch.cuda.synchronize()
+        rates.append((name, steps / (time.perf_counter() - t0)))
+    emit("pretrain_turns", steps_per_block=steps, steps_per_s=rates,
+         mean_steps_per_s={n: float(np.mean([r for m, r in rates if m == n])) for n in flags},
+         card=card)
+    del runs
+    torch.cuda.empty_cache()
 
 
 ATTN_PROJ = re.compile(r"\.attention\.self\.(query|key|value)(_global)?\.(weight|bias)$")
+LAYERNORM_PARAM = re.compile(r"\.LayerNorm\.(weight|bias)$")
 
 
-def run_pretrain_vs_chunked(seed):
+def step_grads(seed, flags_a, flags_b):
     """One deterministic loss and backward in float32 compute from the same
-    weights and batch, through the kernel path (both kernels' float32
-    paths) and through the plain chunked attention. The flattened gradients
-    must agree to cosine > 0.999, and each attention projection's gradient
-    to 1e-3 relative wherever it carries more than rounding (a key bias's
-    gradient is zero up to rounding, softmax being shift-invariant); the
-    pooled cosine is dominated by the embedding and decoder gradients and
-    cannot see a fault in the attention backward alone."""
+    weights and batch under ``RecformerConfig.base(dtype='float32')``
+    replaced with each of two flag sets. Returns the flattened gradients'
+    cosine, each tensor's share of b's squared norm, each tensor's relative
+    error, and both losses."""
     from recformer_tpu_torch.cli.common import init_model_params
     from recformer_tpu_torch.config import RecformerConfig
     from recformer_tpu_torch.data.device_pipeline import make_pretrain_batch
@@ -635,42 +927,122 @@ def run_pretrain_vs_chunked(seed):
     state = {n: t.clone() for n, t in model.state_dict().items()}
     del model
 
-    def grads(impl):
-        c = cfg.replace(attention_impl=impl)
+    def grads(flags):
+        c = cfg.replace(**flags)
         model = RecformerForPretraining(c).to("cuda")
         model.load_state_dict(state)
         loss, _ = pretrain_loss(c, model(ba, bb), ba, bb)
         loss.backward()
         return {n: p.grad.float() for n, p in model.named_parameters()}, float(loss.detach())
 
-    (gk, loss_k), (gc, loss_c) = grads("pallas"), grads("chunked")
+    (ga, loss_a), (gb, loss_b) = grads(flags_a), grads(flags_b)
     cos = float(torch.nn.functional.cosine_similarity(
-        torch.cat([g.flatten() for g in gk.values()]),
-        torch.cat([gc[n].flatten() for n in gk]), dim=0))
-    total = sum(float(g.norm() ** 2) for g in gc.values())
-    share = {n: float(g.norm() ** 2) / total for n, g in gc.items()}
-    rel = {n: float((g - gc[n]).norm() / gc[n].norm().clamp_min(1e-30)) for n, g in gk.items()}
-    gated = [n for n in gk if ATTN_PROJ.search(n) and share[n] > 1e-10]
+        torch.cat([g.flatten() for g in ga.values()]),
+        torch.cat([gb[n].flatten() for n in ga]), dim=0))
+    total = sum(float(g.norm() ** 2) for g in gb.values())
+    share = {n: float(g.norm() ** 2) / total for n, g in gb.items()}
+    rel = {n: float((g - gb[n]).norm() / gb[n].norm().clamp_min(1e-30)) for n, g in ga.items()}
+    del ga, gb
+    torch.cuda.empty_cache()
+    return cos, share, rel, loss_a, loss_b
+
+
+def gate_grads(phase, pattern, min_gated, cos, share, rel, **record):
+    """cosine > 0.999, and every tensor whose name matches ``pattern`` and
+    that carries more than 1e-10 of the squared norm within 1e-3 relative."""
+    gated = [n for n in rel if pattern.search(n) and share[n] > 1e-10]
     worst = max(gated, key=rel.get)
     worst_any = max(rel, key=rel.get)
-    del gk, gc
-    ok = cos > 0.999 and len(gated) >= 4 * cfg.num_hidden_layers and rel[worst] <= 1e-3
-    emit("pretrain_vs_chunked", dtype="float32", grad_cosine=cos, loss_kernel=loss_k,
-         loss_chunked=loss_c, attention_tensors_gated=len(gated), worst_gated_tensor=worst,
-         worst_gated_rel_err=rel[worst], worst_gated_norm_share=share[worst],
-         worst_tensor=worst_any, worst_rel_err=rel[worst_any],
-         worst_tensor_norm_share=share[worst_any], ok=ok)
+    ok = cos > 0.999 and len(gated) >= min_gated and rel[worst] <= 1e-3
+    emit(phase, dtype="float32", grad_cosine=cos, **record, tensors_gated=len(gated),
+         worst_gated_tensor=worst, worst_gated_rel_err=rel[worst],
+         worst_gated_norm_share=share[worst], worst_tensor=worst_any,
+         worst_rel_err=rel[worst_any], worst_tensor_norm_share=share[worst_any], ok=ok)
     if not ok:
-        raise AssertionError(f"kernel path vs chunked gradients: cosine {cos}, "
-                             f"{worst} relative error {rel[worst]} ({len(gated)} gated)")
+        raise AssertionError(f"{phase}: cosine {cos}, {worst} relative error {rel[worst]} "
+                             f"({len(gated)} gated)")
+
+
+def run_pretrain_vs_chunked(seed):
+    """The kernel path (both attention kernels' float32 paths) against the
+    plain chunked attention: cosine > 0.999, and each attention projection's
+    gradient within 1e-3 relative wherever it carries more than rounding (a
+    key bias's gradient is zero up to rounding, softmax being
+    shift-invariant); the pooled cosine is dominated by the embedding and
+    decoder gradients and cannot see a fault in the attention backward
+    alone."""
+    cos, share, rel, loss_k, loss_c = step_grads(seed, dict(attention_impl="pallas"),
+                                                 dict(attention_impl="chunked"))
+    gate_grads("pretrain_vs_chunked", ATTN_PROJ, 4 * 12, cos, share, rel,
+               loss_kernel=loss_k, loss_chunked=loss_c)
+
+
+def run_pretrain_ln_kernels_vs_plain(seed):
+    """The LayerNorm kernels' configuration (``embed_ln_impl='pallas'``,
+    ``ln_impl='pallas_bwd'``: kernels 3-5 in float32) against ``'xla'`` and
+    ``'split_bwd'``, which compute the same math in plain PyTorch in float32:
+    cosine > 0.999, and every LayerNorm weight and bias gradient (the
+    embedding LayerNorm's included, 2 x 12 x 2 + 2 tensors) within 1e-3
+    relative."""
+    cos, share, rel, loss_k, loss_p = step_grads(
+        seed, dict(embed_ln_impl="pallas", ln_impl="pallas_bwd"),
+        dict(embed_ln_impl="xla", ln_impl="split_bwd"))
+    gate_grads("pretrain_ln_kernels_vs_plain", LAYERNORM_PARAM, 2 * 2 * 12 + 2, cos, share,
+               rel, loss_kernels=loss_k, loss_plain=loss_p)
+
+
+def run_encode_embed_kernel(seed, card):
+    """A base-width encode of 2,048 items under ``embed_ln_impl='pallas'``
+    (bf16): kernel 3 once per chunk, pooled outputs against the default
+    path's from the same weights (cosine > 0.999)."""
+    from recformer_tpu_torch.cli.common import init_model_params
+    from recformer_tpu_torch.config import RecformerConfig
+    from recformer_tpu_torch.models.heads import RecformerForSeqRec, cosine_similarity
+    from recformer_tpu_torch.training.loops import encode_all_items
+    from recformer_tpu_torch.training.steps import make_encode_items_step
+
+    dev = torch.device("cuda")
+    cfg = RecformerConfig.base(embed_ln_impl="pallas")
+    cfg_d = RecformerConfig.base()
+    model = init_model_params(RecformerForSeqRec(cfg), cfg, device="cuda", seed=seed)
+    plain = RecformerForSeqRec(cfg_d).to(dev).eval()
+    plain.load_state_dict(model.state_dict())
+    n_items, bs = 2048, 256
+    table = {k: torch.from_numpy(v).to(dev)
+             for k, v in synthetic_table(cfg, n_items, seed + 3).items()}
+    for c, m in ((cfg, model), (cfg_d, plain)):  # warm-up
+        make_encode_items_step(c, m)(table, torch.arange(bs, device=dev))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    emb = encode_all_items(model, table, cfg, batch_size=bs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    emb_d = encode_all_items(plain, table, cfg_d, batch_size=bs)
+    cos = cosine_similarity(emb.float(), emb_d.float())
+    forwards = math.ceil(n_items / bs)
+    ok = (tuple(emb.shape) == (n_items, cfg.hidden_size) and bool(torch.isfinite(emb).all())
+          and counts["embed_layernorm_fwd"] == forwards
+          and counts["band_attention_fwd"] == cfg.num_hidden_layers * forwards
+          and float(cos.min()) > 0.999)
+    emit("encode_embed_kernel", items=n_items, batch=bs, seq_len=cfg.item_seq_len,
+         seconds=secs, items_per_s=n_items / secs, launches=counts, forwards=forwards,
+         min_cosine_vs_default=float(cos.min()), card=card, ok=ok)
+    if not ok:
+        raise AssertionError(f"encode_embed_kernel: launches {counts}, min cosine "
+                             f"{float(cos.min())}")
+    del model, plain
     torch.cuda.empty_cache()
+    return counts
 
 
-def run_pretrain_cli(seed):
-    """``cli.pretrain --model_size base --device cuda`` on a small corpus:
-    one epoch with accumulation 2, dev validation, best and last saved."""
+def run_pretrain_cli(seed, phase="pretrain_cli", extra=()):
+    """``cli.pretrain --model_size base --device cuda`` (plus ``extra``) on a
+    small corpus: one epoch with accumulation 2, dev validation, best and
+    last saved."""
     from recformer_tpu_torch.cli import pretrain
-    from recformer_tpu_torch.ops import window_attention as wa
+    from recformer_tpu_torch.config import RecformerConfig
 
     with tempfile.TemporaryDirectory() as tmp:
         seqs = write_corpus(tmp, n_users=24, seed=seed)
@@ -679,19 +1051,29 @@ def run_pretrain_cli(seed):
         with open(os.path.join(tmp, "dev.json"), "w") as f:
             json.dump(list(seqs.values())[:8], f)
         out_dir = os.path.join(tmp, "out")
-        wa.LAUNCHES = wa.BWD_LAUNCHES = 0
+        reset_counts()
         res = pretrain.main(["--data_path", tmp, "--output_dir", out_dir,
                              "--model_size", "base", "--num_train_epochs", "1",
                              "--batch_size", "8", "--gradient_accumulation_steps", "2",
-                             "--warmup_steps", "1", "--seed", str(seed), "--device", "cuda"])
-        fwd, bwd = wa.LAUNCHES, wa.BWD_LAUNCHES
+                             "--warmup_steps", "1", "--seed", str(seed), "--device", "cuda",
+                             *extra])
+        counts = read_counts()
         written = sorted(os.listdir(out_dir))
+        cfg = RecformerConfig.load(os.path.join(out_dir, "config.json"))
+    per_step = launches_per_step(cfg)
+    # every step runs forward and backward; the one dev validation runs the
+    # two towers' forward once more
+    expected = {k: v * res["steps"] for k, v in per_step.items()}
+    expected["band_attention_fwd"] += per_step["band_attention_fwd"]
+    expected["embed_layernorm_fwd"] += per_step["embed_layernorm_fwd"]
     ok = (res["steps"] == 3 and res["updates"] == 1 and {"best.pt", "last.pt"} <= set(written)
-          and bwd == 24 * res["steps"] and fwd == 24 * (res["steps"] + 1))
-    emit("pretrain_cli", **res, written=written, fwd_launches=fwd, bwd_launches=bwd, ok=ok)
+          and counts == expected)
+    emit(phase, **res, args=list(extra), ln_impl=cfg.ln_impl, written=written, launches=counts,
+         expected_launches=expected, ok=ok)
     if not ok:
-        raise AssertionError(f"cli.pretrain: {res}, {written}, launches {fwd}/{bwd}")
-    return fwd, bwd
+        raise AssertionError(f"{phase}: {res}, {written}, launches {counts} "
+                             f"(expected {expected})")
+    return counts
 
 
 def main(argv=None) -> int:
@@ -720,28 +1102,55 @@ def main(argv=None) -> int:
     errs = check_kernels(gen)
     dropout_check(gen, card)
     times = time_kernels(gen, card)
-    serve_fwd = run_serving(args.seed, card)
-    step_fwd, step_bwd = run_pretrain_step(args.seed, card)
+    ln_errs = check_ln_kernels(gen)
+    ln_times = time_ln_kernels(gen, card)
+    phases = {"serving": run_serving(args.seed, card),
+              "encode_embed_kernel": run_encode_embed_kernel(args.seed, card)}
+    phases["pretrain_step"], default_rates = run_pretrain_step(args.seed, card)
+    phases["pretrain_step_ln_kernels"], _ = run_pretrain_step(
+        args.seed, card, phase="pretrain_step_ln_kernels", baseline=default_rates,
+        embed_ln_impl="pallas", ln_impl="pallas_bwd")
+    run_pretrain_turns(args.seed, card)
     run_pretrain_vs_chunked(args.seed)
-    cli_fwd, cli_bwd = run_pretrain_cli(args.seed)
+    run_pretrain_ln_kernels_vs_plain(args.seed)
+    phases["pretrain_cli"] = run_pretrain_cli(args.seed)
+    phases["pretrain_cli_ln_impl"] = run_pretrain_cli(
+        args.seed, phase="pretrain_cli_ln_impl", extra=("--ln_impl", "pallas_bwd"))
 
-    def kernel_row(name, replaces, launches):
-        head = times[name]["sequence_tower"]
+    sources = {"band_attention_fwd": "band_attention_fwd.cu",
+               "band_attention_bwd": "band_attention_bwd.cu",
+               "embed_layernorm_fwd": "embed_layernorm.cu",
+               "embed_layernorm_bwd": "embed_layernorm.cu", "layernorm_bwd": "layernorm_bwd.cu"}
+    replaces = {
+        "band_attention_fwd": "recformer_tpu/ops/pallas_attention.py:118",
+        "band_attention_bwd": "recformer_tpu/ops/pallas_attention.py:204",
+        "embed_layernorm_fwd": "recformer_tpu/ops/pallas_embed.py:27",
+        "embed_layernorm_bwd": "recformer_tpu/ops/pallas_embed.py:39",
+        "layernorm_bwd": "recformer_tpu/ops/pallas_layernorm.py:41",
+    }
+
+    def kernel_row(name):
+        if name in LN_KERNELS:
+            rows = ln_times[name]
+            err = max(e for (k, case, dt), e in ln_errs.items()
+                      if k == name and dt == torch.bfloat16 and case in rows)
+        else:
+            rows = times[name]
+            err = max(errs[(n, torch.bfloat16)][name == "band_attention_bwd"]
+                      for n in BASE_SHAPES)
+        head = rows["sequence_tower"]
+        by_phase = {p: c[name] for p, c in phases.items() if c.get(name)}
         return dict(
-            name=name, route="cuda", source=f"recformer_tpu_torch/ops/csrc/{name}.cu",
-            replaces=replaces, launches=sum(launches.values()), launches_by_phase=launches,
-            max_abs_err=max(errs[(n, torch.bfloat16)][name == "band_attention_bwd"]
-                            for n in BASE_SHAPES),
-            ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-            bound_by=head["bound_by"], library_ms=head["library_ms"],
-            shape="sequence_tower", shapes=times[name], card=card)
+            name=name, route="cuda", source=f"recformer_tpu_torch/ops/csrc/{sources[name]}",
+            replaces=replaces[name], launches=sum(by_phase.values()),
+            launches_by_phase=by_phase, max_abs_err=err, ms=head["ms"],
+            plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"], shape="sequence_tower", shapes=rows, card=card)
 
-    kernels = [
-        kernel_row("band_attention_fwd", "recformer_tpu/ops/pallas_attention.py:118",
-                   {"serving": serve_fwd, "pretrain_step": step_fwd, "pretrain_cli": cli_fwd}),
-        kernel_row("band_attention_bwd", "recformer_tpu/ops/pallas_attention.py:204",
-                   {"pretrain_step": step_bwd, "pretrain_cli": cli_bwd}),
-    ]
+    kernels = [kernel_row(name) for name in KERNELS]
+    missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on a main path: {missing}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

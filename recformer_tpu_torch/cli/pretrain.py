@@ -71,6 +71,9 @@ def parse_args(argv=None):
                    help="sequence pooling: CLS token (default) or masked mean")
     p.add_argument("--max_token_num", type=int, default=None,
                    help="max sequence length in tokens")
+    p.add_argument("--ln_impl", choices=["xla", "pallas_bwd", "split_bwd"], default=None,
+                   help="encoder-block LayerNorm: flax's (default), the backward kernel, "
+                        "or the split plain backward (see config.ln_impl)")
     p.add_argument("--fix_word_embedding", action="store_true")
     p.add_argument("--valid_step_interval", type=int, default=2000)
     p.add_argument("--valid_batches", type=int, default=0,

@@ -7,8 +7,14 @@ the dtype properties differ: they return ``torch.dtype``s.
 Knobs that only shape the JAX program keep their names and are accepted
 here without changing the forward math: ``scan_layers``/``scan_unroll`` run
 the same plain layer loop, ``remat``/``remat_policy`` only matter for a
-backward pass, and ``embed_ln_impl``/``ln_impl`` select LayerNorm kernels
-whose forward is the plain one. ``attention_impl`` keeps its values:
+backward pass. ``embed_ln_impl='pallas'`` sums the four embedding lookups
+in float32 and LayerNorms them through the fused embedding kernels
+(``ops/embed_layernorm.py``; ``'xla'`` sums in the compute type, plainly).
+``ln_impl`` selects the encoder blocks' LayerNorm: ``'xla'`` flax's fast
+variance, ``'pallas_bwd'`` the two-pass forward with the LayerNorm backward
+kernel (``ops/layernorm.py``), ``'split_bwd'`` the same forward with a plain
+backward; the LM head keeps flax's under every value. ``attention_impl``
+keeps its values:
 ``'pallas'`` selects the hand-written windowed-attention kernel (its plain
 version on the CPU), ``'dense'`` and ``'chunked'`` the plain twins, and
 ``'sequence_parallel'`` is refused until the parallel slice.

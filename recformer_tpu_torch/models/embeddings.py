@@ -4,9 +4,13 @@ Counterpart of ``recformer_tpu/models/embeddings.py``:
 
 - token-position ids are padding-aware: the cumulative count of non-pad
   tokens, offset by ``pad_token_id`` (pad tokens sit at ``pad_token_id``);
-- the four lookups are summed in the compute type, then LayerNormed in
-  float32 with the two-pass variance, then cast back to the compute type;
-- training applies hidden dropout to the result.
+- ``embed_ln_impl='xla'``: the four lookups are summed in the compute type,
+  then LayerNormed in float32 with the two-pass variance, then cast back to
+  the compute type;
+- ``embed_ln_impl='pallas'``: the four lookups go to
+  :func:`~recformer_tpu_torch.ops.embed_layernorm.fused_embed_layernorm`
+  (the hand-written kernels on the card), which sums them in float32;
+- training applies hidden dropout to the result, outside the kernel.
 
 Tables are plain ``nn.Embedding``s in the parameter type; a lookup casts
 the gathered rows to the compute type, which gives the same values as the
@@ -19,6 +23,7 @@ import torch
 from torch import nn
 
 from ..config import RecformerConfig
+from ..ops.embed_layernorm import fused_embed_layernorm
 from ..utils.rng import dropout
 
 
@@ -50,10 +55,15 @@ class RecformerEmbeddings(nn.Module):
         pos = self.position_embeddings(position_ids).to(dt)
         typ = self.token_type_embeddings(token_type_ids).to(dt)
         item = self.item_position_embeddings(item_position_ids).to(dt)
+        ln = self.LayerNorm
+        if cfg.embed_ln_impl == "pallas":
+            x = fused_embed_layernorm(word, pos, typ, item, ln.weight, ln.bias,
+                                      cfg.layer_norm_eps)
+            return dropout(x.to(dt), cfg.hidden_dropout_prob, rng)
         x = (word + pos + typ + item).float()
         mu = x.mean(dim=-1, keepdim=True)
         xc = x - mu
         var = (xc * xc).mean(dim=-1, keepdim=True)
         x = xc * torch.rsqrt(var + cfg.layer_norm_eps)
-        x = x * self.LayerNorm.weight.float() + self.LayerNorm.bias.float()
+        x = x * ln.weight.float() + ln.bias.float()
         return dropout(x.to(dt), cfg.hidden_dropout_prob, rng)

@@ -8,9 +8,13 @@ Longformer's names (``attention.self.query``, ``attention.output.dense``,
 package's checkpoint importer maps, so one state dict loads into both.
 
 Numerics follow flax: a dense layer casts its input, kernel and bias to the
-compute type; the residual sum is taken in the compute type; the block
-LayerNorm computes its statistics in float32 with flax's fast variance
-``E[x^2] - E[x]^2``. ``attention_impl`` selects the attention core:
+compute type; the residual sum is taken in the compute type. ``ln_impl``
+selects the block LayerNorm, as the JAX package's ``_block_layernorm``
+does: ``'xla'`` is flax's ``nn.LayerNorm`` (float32 statistics with the
+fast variance ``E[x^2] - E[x]^2``), ``'pallas_bwd'`` the two-pass forward
+with the hand-written backward kernel (``ops/layernorm.py``) and
+``'split_bwd'`` the same forward with its plain split backward; the
+parameters are the same under all three. ``attention_impl`` selects the attention core:
 ``'pallas'`` the fused kernel (``ops/window_attention.py``), ``'dense'`` and
 ``'chunked'`` the plain twins. ``scan_layers`` and ``remat`` do not change
 the forward math, so the encoder runs the same layer loop under any value.
@@ -30,6 +34,7 @@ from torch import nn
 from ..config import RecformerConfig
 from ..ops.attention import (_batch_index, chunked_attention, dense_attention,
                              global_prefix_indices, global_rows_thin)
+from ..ops.layernorm import fused_bwd_layernorm, split_layernorm
 from ..ops.window_attention import window_attention
 from ..utils.rng import dropout
 
@@ -126,9 +131,13 @@ class LongformerSelfAttention(nn.Module):
         return out.reshape(B, L, hs)
 
 
+_BLOCK_LAYERNORMS = {"pallas_bwd": fused_bwd_layernorm, "split_bwd": split_layernorm}
+
+
 class BlockOutput(nn.Module):
     """Dense projection, hidden dropout, residual sum in the compute type,
-    then LayerNorm — the tail of both post-LayerNorm blocks."""
+    then the LayerNorm ``ln_impl`` selects — the tail of both post-LayerNorm
+    blocks."""
 
     def __init__(self, config: RecformerConfig, n_in: int):
         super().__init__()
@@ -141,7 +150,11 @@ class BlockOutput(nn.Module):
         cfg = self.config
         dt = cfg.compute_dtype
         x = dropout(dense(x, self.dense, dt), cfg.hidden_dropout_prob, rng)
-        return block_layernorm(x + residual.to(dt), self.LayerNorm, dt)
+        x = x + residual.to(dt)
+        ln = self.LayerNorm
+        if cfg.ln_impl in _BLOCK_LAYERNORMS:
+            return _BLOCK_LAYERNORMS[cfg.ln_impl](x, ln.weight, ln.bias, ln.eps)
+        return block_layernorm(x, ln, dt)
 
 
 class AttentionBlock(nn.Module):

@@ -64,7 +64,8 @@ class RecformerForSeqRec(nn.Module):
 
 class MLMTransform(nn.Module):
     """LM head transform (dense -> activation -> LayerNorm) and the tied
-    decoder's bias, with HF ``LongformerLMHead``'s parameter names."""
+    decoder's bias, with HF ``LongformerLMHead``'s parameter names. Its
+    LayerNorm is flax's under every ``ln_impl``, as in the JAX package."""
 
     def __init__(self, config: RecformerConfig):
         super().__init__()

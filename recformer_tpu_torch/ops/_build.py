@@ -17,12 +17,15 @@ import shutil
 import subprocess
 from typing import Dict
 
+import torch
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 _CSRC = os.path.join(_HERE, "csrc")
 SOURCES = {name: os.path.join(_CSRC, f"{name}.cu")
-           for name in ("band_attention_fwd", "band_attention_bwd")}
-HEADERS = (os.path.join(_CSRC, "band_common.cuh"),)
+           for name in ("band_attention_fwd", "band_attention_bwd", "embed_layernorm",
+                        "layernorm_bwd")}
+HEADERS = tuple(os.path.join(_CSRC, h) for h in ("band_common.cuh", "row_reduce.cuh"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -49,9 +52,41 @@ SIGNATURES = {
              _F, _F, _I, *_DROPOUT, _P],                   # q/dq scales, fuse, dropout, stream
             _I),
     },
+    "embed_layernorm": {
+        "embed_layernorm_bwd_blocks": ([_I], _I),  # M
+        "embed_layernorm_fwd": (
+            [_I, _P, _P, _P, _P, _P, _P, _P,              # dtype, a b c d, gamma beta, out
+             _I, _I, _F, _P],                              # M H eps stream
+            _I),
+        "embed_layernorm_bwd": (
+            [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,      # dtype, a b c d, gamma dout dx partial dgb
+             _I, _I, _F, _P],                              # M H eps stream
+            _I),
+    },
+    "layernorm_bwd": {
+        "layernorm_bwd_blocks": ([_I], _I),  # M
+        "layernorm_bwd": (
+            [_I, _P, _P, _P, _P, _P, _P,                  # dtype, x gamma dout dx partial dgb
+             _I, _I, _F, _P],                              # M H eps stream
+            _I),
+    },
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+
+# the ``dtype`` argument of every kernel's C interface
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with its data at a multiple of 32 bytes (the row
+    kernels' vector loads need it; a fresh allocation always is)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 32 == 0 else t.clone()
 
 
 def _nvcc() -> str:

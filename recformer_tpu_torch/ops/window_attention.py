@@ -55,6 +55,8 @@ import ctypes
 
 import torch
 
+from ._build import DTYPE_CODES as _DTYPE_CODES
+from ._build import ptr as _ptr
 from .attention import _batch_index, _global_rows, attention_scale, global_prefix_indices
 
 # Launches of the CUDA kernels since the last reset: one per forward and one
@@ -63,7 +65,6 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK32 = 0xFFFFFFFF
 
 
@@ -291,10 +292,6 @@ def _dropout_args(rate: float, seed: int):
     if rate <= 0.0:
         return [0, 0, 0, ctypes.c_float(1.0)]
     return [1, int(seed) & _MASK32, dropout_threshold(rate), ctypes.c_float(_drop_scale(rate))]
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
 
 
 def _launch(q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, num_heads, window,

@@ -19,7 +19,8 @@ def port_modules():
 
 def test_importing_every_module_loads_no_jax():
     mods = port_modules()
-    assert "recformer_tpu_torch.ops.window_attention" in mods
+    for name in ("window_attention", "layernorm", "embed_layernorm"):
+        assert f"recformer_tpu_torch.ops.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -44,6 +45,9 @@ def test_sources_name_no_jax():
     sources += [os.path.join(REPO, p) for p in (
         "chip_smoke.py", "scripts/profile_torch_serving.py", "scripts/profile_torch_pretrain.py")]
     assert len(sources) > 20
+    names = {os.path.basename(p) for p in sources}
+    assert {"embed_layernorm.cu", "layernorm_bwd.cu", "row_reduce.cuh", "layernorm.py",
+            "embed_layernorm.py"} <= names
     for path in sources:
         with open(path) as f:
             text = f.read()

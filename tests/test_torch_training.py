@@ -184,14 +184,21 @@ def test_optimizer_update_matches_optax(head_lr):
 # the pretraining loss and its gradients
 # ---------------------------------------------------------------------------
 
-def test_pretrain_loss_and_grads_match_jax():
+@pytest.mark.parametrize("ln_impl,embed_ln_impl", [("xla", "xla"), ("pallas_bwd", "pallas"),
+                                                   ("split_bwd", "xla")],
+                         ids=["xla", "pallas_bwd-embed_pallas", "split_bwd"])
+def test_pretrain_loss_and_grads_match_jax(ln_impl, embed_ln_impl):
     """One deterministic pretraining loss through both stacks: the port with
     the kernel path (the band core's autograd function with its plain
     backward), JAX with its chunked attention; the same weights and the same
-    JAX-built batch (pairs and MLM)."""
-    jcfg, tcfg = configs(initializer_range=0.1)
+    JAX-built batch (pairs and MLM). Both run the same ``ln_impl`` (JAX's
+    Pallas LayerNorm backward in interpret mode). The port's
+    ``embed_ln_impl='pallas'`` is held to JAX's ``'xla'``: JAX's model cannot
+    run its embedding kernel on the CPU, and in fp32 the two sums are the
+    same float32 additions."""
+    jcfg, tcfg = configs(initializer_range=0.1, ln_impl=ln_impl)
     jcfg = jcfg.replace(attention_impl="chunked")
-    tcfg = tcfg.replace(attention_impl="pallas")
+    tcfg = tcfg.replace(attention_impl="pallas", embed_ln_impl=embed_ln_impl)
     table = {k: jnp.asarray(v) for k, v in synthetic_table(jcfg, 30, 3).items()}
     item_ids, seq_lens = history(3, B=3, S=12)
     batch_a, batch_b = jdp.make_pretrain_batch(jax.random.PRNGKey(4), table,
@@ -286,6 +293,22 @@ def test_cli_pretrain_runs_on_cpu_and_writes_parameters(tmp_path):
     saved = torch.load(out_dir / "last.pt", weights_only=True)
     for k, v in model.state_dict().items():
         assert torch.equal(v, saved[k])
+
+
+def test_cli_pretrain_takes_ln_impl(tmp_path):
+    """``--ln_impl pallas_bwd`` reaches the model: the saved config carries
+    it, and the run takes its steps and saves its parameters."""
+    from recformer_tpu_torch.cli import pretrain
+
+    write_corpus(tmp_path)
+    out_dir = tmp_path / "out"
+    res = pretrain.main(["--data_path", str(tmp_path), "--output_dir", str(out_dir),
+                         "--model_size", "tiny", "--num_train_epochs", "1",
+                         "--batch_size", "4", "--gradient_accumulation_steps", "1",
+                         "--warmup_steps", "1", "--ln_impl", "pallas_bwd", "--device", "cpu"])
+    assert res["steps"] == 3 and res["updates"] == 3
+    assert RecformerConfig.load(str(out_dir / "config.json")).ln_impl == "pallas_bwd"
+    assert (out_dir / "last.pt").exists()
 
 
 def test_cli_pretrain_refuses_missing_cuda(tmp_path):
