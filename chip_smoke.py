@@ -9,17 +9,24 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
 2. build: every CUDA kernel of the paths, from the repository's sources, one
    ``nvcc`` per source, all started together;
 3. kernel_check: both attention kernels against their plain PyTorch versions
-   on the same inputs, at the shapes of the JAX kernel tests and at the two
-   Recformer-base shapes, float32 and bfloat16, attention dropout 0 and 0.1
-   (one seed): the forward on max abs error (<= 1e-4 / 2e-2), each of the
-   backward's six outputs on max|err| / max|ref| (<= 1e-4 / 1e-2);
+   on the same inputs, at the shapes of the JAX kernel tests, at the two
+   Recformer-base shapes and at the tensor-core versions' edges (L off the
+   tiles, tiles of padding rows, no valid global, the global row away from
+   0, eight globals unfused, many (batch, head) pairs), float32 and
+   bfloat16, attention dropout 0 and 0.1 (one seed): the forward on max abs
+   error (<= 1e-4 / 2e-2), each of the backward's six outputs on
+   max|err| / max|ref| (<= 1e-4 / 1e-2), bitwise equal on a second call;
+   both through their tensor-core versions exactly for bf16 at D = W = 64;
 4. dropout_check: at the sequence tower's shape, determinism per seed, the
    keep fraction (0.9 +- 0.005), mean-field unbiasedness over 64 seeds and
    forward/backward mask agreement (a directional derivative along v);
-5. kernel_time: both attention kernels, their plain versions and one
-   PyTorch library call (``scaled_dot_product_attention`` with an explicit
-   band+global mask, and its backward) at the base shapes, median of
-   per-launch CUDA-event times, beside the least time the card could take;
+5. kernel_time: both attention kernels at dropout 0 and 0.1, their plain
+   versions and one PyTorch library call (``scaled_dot_product_attention``
+   with an explicit band+global mask, and its backward, both without
+   dropout) at the base shapes, median of per-launch CUDA-event times and
+   the device time per launch from a CUDA graph (the backward's also by
+   pass, from ``torch.profiler``), beside the least time the card could
+   take and the times before the tensor-core redesign;
 6. ln_kernel_check: the embedding LayerNorm forward and backward and the
    LayerNorm backward against their plain versions at the main path's rows
    (16,384, 2,048 and 32,768 of 768), 1,000 rows and a narrow row of 64,
@@ -50,7 +57,9 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     and last saved), then again with ``--ln_impl pallas_bwd``.
 
 Launch counts, set to 0 just before each path and read just after, show that
-the paths ran the kernels, as many times as the code says they must. Then
+the paths ran the kernels, as many times as the code says they must (the
+attention kernels' tensor-core launches among them: every forward of
+serving, and all 24 forwards and 24 backwards of a bf16 step). Then
 the kernels line, the card line and, last, the result line. Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
 result.
@@ -122,9 +131,10 @@ def median_launch_ms(fn, n: int = 25, warmup: int = 3) -> float:
 # ---------------------------------------------------------------------------
 
 def band_case(gen, B, L, H, D, window, dtype, lengths=None, global_at_zero=True,
-              extra_global=False, max_globals=1):
+              extra_global=False, max_globals=1, global_rows=()):
     """Operands of the band-attention kernel on the card, built by the
-    wrapper's own pre-processing. ``lengths``: valid tokens per row."""
+    wrapper's own pre-processing. ``lengths``: valid tokens per row;
+    ``global_rows``: further positions of global rows."""
     from recformer_tpu_torch.ops.window_attention import prepare_band_inputs
 
     dev = torch.device("cuda")
@@ -138,6 +148,8 @@ def band_case(gen, B, L, H, D, window, dtype, lengths=None, global_at_zero=True,
         mask[:, 0] = 2
     if extra_global:
         mask[:, 5] = 2
+    for r in global_rows:
+        mask[:, r] = 2
     _, ops = prepare_band_inputs(q, k, v, mask, max_globals)
     ops["gout"] = (torch.randn(B, max_globals, H * D, generator=gen, device=dev) * 0.5).to(dtype)
     return ops
@@ -151,11 +163,20 @@ def rel_err(out, ref) -> float:
     return err / scale if scale > 0 else err
 
 
+def tensor_core_shape(dtype, D, window, G) -> bool:
+    """Whether both kernels take their tensor-core versions (the C entry
+    points' condition)."""
+    return dtype == torch.bfloat16 and D == 64 and window == 64 and G <= 8
+
+
 def check_case(name, gen, dtype, fuse=True, **kw):
     """Both kernels against their plain versions on one case: the forward at
     dropout 0 and 0.1 (same seed), the backward's six outputs at dropout 0
-    and 0.1. Returns the forward's max abs error at dropout 0 and the
-    backward's largest abs error over its outputs and both rates."""
+    and 0.1, each output bitwise equal on a second call, and the backward's
+    path (tensor cores exactly where ``tensor_core_shape`` says). Returns the
+    forward's max abs error at dropout 0 and the backward's largest abs
+    error over its outputs and both rates."""
+    from recformer_tpu_torch.ops import window_attention as wa
     from recformer_tpu_torch.ops.window_attention import (band_attention, band_attention_bwd,
                                                           window_attention_bwd_plain,
                                                           window_attention_plain)
@@ -163,41 +184,50 @@ def check_case(name, gen, dtype, fuse=True, **kw):
     B, L, H, D, window = (kw.pop(x) for x in ("B", "L", "H", "D", "window"))
     ops = band_case(gen, B, L, H, D, window, dtype, **kw)
     common = dict(num_heads=H, window=window, fuse_epilogue=fuse)
+    want_path = ("tensor_core" if tensor_core_shape(dtype, D, window, ops["gk"].shape[1])
+                 else "cuda_core")
     fwd_err = bwd_err = 0.0
     for rate in (0.0, 0.1):
         drop = dict(dropout_rate=rate, seed=1234 + L)
+        tc_before = wa.TC_LAUNCHES
         with torch.no_grad():
             out = band_attention(**ops, **common, **drop)
         torch.cuda.synchronize()
+        path = "tensor_core" if wa.TC_LAUNCHES - tc_before == 1 else "cuda_core"
         ref = window_attention_plain(**ops, **common, **drop)
         err = float((out.float() - ref.float()).abs().max())
-        ok = bool(torch.isfinite(out.float()).all()) and err <= TOL[dtype]
+        ok = bool(torch.isfinite(out.float()).all()) and err <= TOL[dtype] and path == want_path
         emit("kernel_check", kernel="band_attention_fwd", case=name,
              dtype=str(dtype).removeprefix("torch."), shape=[B, L, H, D], window=window,
-             fused_epilogue=fuse, dropout=rate, max_abs_err=err, tol_abs=TOL[dtype], ok=ok)
+             fused_epilogue=fuse, dropout=rate, path=path, max_abs_err=err, tol_abs=TOL[dtype],
+             ok=ok)
         if not ok:
             raise AssertionError(f"forward kernel disagrees with its plain version: {name} "
-                                 f"{dtype} rate {rate}")
+                                 f"{dtype} rate {rate}, path {path}")
         if rate == 0.0:
             fwd_err = err
 
         dout = (torch.randn(B, L, H * D, generator=gen, device="cuda") * 0.5).to(dtype)
         if not fuse:  # the wrapper zeroes the gradient at global and padding rows
             dout = torch.where(ops["mrow"][:, :, None] == 1, dout, 0.0)
+        tc_before = wa.BWD_TC_LAUNCHES
         got = band_attention_bwd(**ops, dout=dout, **common, **drop)
+        again = band_attention_bwd(**ops, dout=dout, **common, **drop)
         torch.cuda.synchronize()
+        path = "tensor_core" if wa.BWD_TC_LAUNCHES - tc_before == 2 else "cuda_core"
         want = window_attention_bwd_plain(**ops, dout=dout, **common, **drop)
         errs = {n: rel_err(g, w) for n, g, w in zip(BWD_OUTPUTS, got, want)}
         abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        stable = all(torch.equal(g, a) for g, a in zip(got, again))
         ok = (all(bool(torch.isfinite(g.float()).all()) for g in got)
-              and max(errs.values()) <= BWD_TOL[dtype])
+              and max(errs.values()) <= BWD_TOL[dtype] and stable and path == want_path)
         emit("kernel_check", kernel="band_attention_bwd", case=name,
              dtype=str(dtype).removeprefix("torch."), shape=[B, L, H, D], window=window,
-             fused_epilogue=fuse, dropout=rate, rel_err=errs, max_abs_err=abs_err,
-             tol_rel=BWD_TOL[dtype], ok=ok)
+             fused_epilogue=fuse, dropout=rate, path=path, rel_err=errs, max_abs_err=abs_err,
+             tol_rel=BWD_TOL[dtype], bitwise_stable=stable, ok=ok)
         if not ok:
             raise AssertionError(f"backward kernel disagrees with its plain version: {name} "
-                                 f"{dtype} rate {rate}: {errs}")
+                                 f"{dtype} rate {rate}: {errs}, stable {stable}, path {path}")
         bwd_err = max(bwd_err, abs_err)
     return fwd_err, bwd_err
 
@@ -223,6 +253,22 @@ def check_kernels(gen):
                                global_at_zero=False),
         "d64_two_globals_unfused": dict(B=2, L=128, H=2, D=64, window=64, lengths=[128, 77],
                                         extra_global=True, max_globals=2, fuse=False),
+        # the tensor-core versions' edges: L off the 64- and 128-row tiles,
+        # tiles of padding rows only, no valid global, the global row away
+        # from 0 (and L off a multiple of 4, where the global columns' keep
+        # bits are drawn one by one), eight globals without the fused
+        # epilogue, a grid of many (batch, head) pairs
+        "d64_L1000": dict(B=2, L=1000, H=2, D=64, window=64, lengths=[1000, 613]),
+        "d64_padding_tiles": dict(B=2, L=384, H=2, D=64, window=64, lengths=[384, 100]),
+        "d64_no_globals_L200": dict(B=2, L=200, H=2, D=64, window=64, lengths=[200, 131],
+                                    global_at_zero=False),
+        "d64_global_at_37_L203": dict(B=2, L=203, H=2, D=64, window=64, lengths=[203, 160],
+                                      global_at_zero=False, global_rows=(37,)),
+        "d64_eight_globals_unfused": dict(B=2, L=256, H=2, D=64, window=64, lengths=[256, 200],
+                                          global_rows=(3, 9, 40, 77, 100, 130, 190),
+                                          max_globals=8, fuse=False),
+        "d64_many_heads": dict(B=48, L=256, H=12, D=64, window=64,
+                               lengths=[256 - 5 * b for b in range(48)]),
     }
     rng = np.random.default_rng(0)
     for name, (B, L) in BASE_SHAPES.items():
@@ -285,21 +331,24 @@ def dropout_check(gen, card):
                     / torch.linalg.norm(ref))
     unbiased = rel_mean < 1.6 * rel_one / math.sqrt(K)
 
-    # forward/backward mask agreement
-    w = torch.randn(B, L, H * D, generator=gen, device="cuda")
+    # forward/backward mask agreement. The loss weights w are the forward's
+    # own difference along dv, so the derivative <w, J dv> is a sum of
+    # squares: with random weights it is a sum of random signs, which can
+    # come out small enough for the outputs' bf16 rounding to dominate it.
     dv = (torch.randn(B, L, H * D, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
     v = ops["v2"].detach().clone().requires_grad_()
+
+    def delta(seed):
+        return (run(seed, v2=(v.detach().float() + dv.float()).to(torch.bfloat16))
+                - run(seed, v2=(v.detach().float() - dv.float()).to(torch.bfloat16)))
+
+    w = delta(42)
     loss = (band_attention(**dict(ops, v2=v), **common, dropout_rate=rate, seed=42).float()
             * w).sum()
     (g,) = torch.autograd.grad(loss, v)
     analytic = float((g.float() * dv.float()).sum())
-
-    def fd(seed):
-        lp = (run(seed, v2=(v.detach().float() + dv.float()).to(torch.bfloat16)) * w).sum()
-        lm = (run(seed, v2=(v.detach().float() - dv.float()).to(torch.bfloat16)) * w).sum()
-        return float(lp - lm) / 2.0
-
-    f_same, f_other = fd(42), fd(43)
+    f_same = float((w * w).sum()) / 2.0
+    f_other = float((w * delta(43)).sum()) / 2.0
     rel_same = abs(analytic - f_same) / max(abs(f_same), 1e-6)
     rel_other = abs(analytic - f_other) / max(abs(f_other), 1e-6)
     agree = rel_same < 2e-2 and rel_other > 3 * rel_same
@@ -359,9 +408,42 @@ def bound(nbytes, ops_count, dtype):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
+# kernels 1 and 2's times before their redesign for the tensor cores (bf16,
+# host-timed median, NVIDIA H100 80GB HBM3 at 700 W; PERF.md), kept in the
+# rows beside this run's
+EARLIER_MS = {
+    "band_attention_fwd": {"sequence_tower": {"dropout_0": 0.0860, "dropout_0.1": 0.1227},
+                           "item_tower": {"dropout_0": 0.1619, "dropout_0.1": 0.2228}},
+    "band_attention_bwd": {"sequence_tower": {"dropout_0.1": 1.9066},
+                           "item_tower": {"dropout_0.1": 3.3805}},
+}
+
+
+def device_ms_by_kernel(fn, n: int = 20) -> dict:
+    """Device time per call of each CUDA kernel ``fn`` launches (the
+    backward's passes), from ``torch.profiler`` over ``n`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"band_\w+", e.name)
+            k = m.group(0) if m else e.name[:40]
+            ms[k] = ms.get(k, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+    return ms
+
+
 def time_kernels(gen, card):
-    """Both kernels at the two base shapes (bf16; the forward with and
-    without dropout), beside the plain versions, SDPA and the bound."""
+    """Both kernels at the two base shapes (bf16; attention dropout 0 and
+    0.1), host-timed (median of back-to-back calls) and as device time from a
+    CUDA graph, beside the plain versions, SDPA (forward, and its backward,
+    both without dropout: the like-for-like figure is the kernels' dropout-0
+    time) and the bound; the backward's device time also by pass."""
     from recformer_tpu_torch.ops import window_attention as wa
 
     H, D, W = 12, 64, 64
@@ -377,9 +459,10 @@ def time_kernels(gen, card):
         G = ops["gk"].shape[1]
         pairs = useful_pairs(ops, W)
         with torch.no_grad():
-            kernel_ms = median_launch_ms(lambda: wa.band_attention(**ops, **common))
-            drop_ms = median_launch_ms(lambda: wa.band_attention(**ops, **common,
-                                                                 dropout_rate=rate, seed=5))
+            fwd = {r: (lambda r=r: wa.band_attention(**ops, **common, dropout_rate=r, seed=5))
+                   for r in (0.0, rate)}
+            kernel_ms = {r: median_launch_ms(f) for r, f in fwd.items()}
+            device_ms = {r: graph_launch_ms(f) for r, f in fwd.items()}
             plain_ms = median_launch_ms(lambda: wa.window_attention_plain(**ops, **common),
                                         n=10, warmup=1)
             library_ms = median_launch_ms(sdpa_call(ops, H, D, W))
@@ -387,16 +470,22 @@ def time_kernels(gen, card):
                   + 2 * B * L * 4 + B * G * 4)
         b_ms, b_by = bound(nbytes, 4 * D * H * pairs, dtype)
         rows["band_attention_fwd"][name] = dict(
-            shape=[B, L, H, D], window=W, dtype="bfloat16", ms=kernel_ms,
-            ms_dropout=drop_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-            bound_by=b_by, bytes=nbytes, operations=4 * D * H * pairs, card=card)
+            shape=[B, L, H, D], window=W, dtype="bfloat16", ms=kernel_ms[0.0],
+            ms_dropout=kernel_ms[rate], graph_ms=device_ms[0.0],
+            graph_ms_dropout=device_ms[rate], plain_ms=plain_ms, library_ms=library_ms,
+            library_call="scaled_dot_product_attention, band+global boolean mask",
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes, operations=4 * D * H * pairs,
+            earlier_ms=EARLIER_MS["band_attention_fwd"][name], card=card)
         emit("kernel_time", kernel="band_attention_fwd", case=name,
              **rows["band_attention_fwd"][name])
 
         dout = (torch.randn(B, L, H * D, generator=gen, device="cuda") * 0.5).to(dtype)
-        bwd = lambda: wa.band_attention_bwd(**ops, dout=dout, **common,  # noqa: E731
-                                            dropout_rate=rate, seed=5)
-        kernel_ms = median_launch_ms(bwd)
+        bwd = {r: (lambda r=r: wa.band_attention_bwd(**ops, dout=dout, **common,
+                                                     dropout_rate=r, seed=5))
+               for r in (0.0, rate)}
+        kernel_ms = {r: median_launch_ms(f) for r, f in bwd.items()}
+        device_ms = {r: graph_launch_ms(f) for r, f in bwd.items()}
+        passes_ms = {f"dropout_{r:g}": device_ms_by_kernel(f) for r, f in bwd.items()}
         plain_ms = median_launch_ms(
             lambda: wa.window_attention_bwd_plain(**ops, dout=dout, **common,
                                                   dropout_rate=rate, seed=5), n=5, warmup=1)
@@ -409,9 +498,13 @@ def time_kernels(gen, card):
                   + 2 * B * G * H * D * elt + 3 * B * G * H * D * 4)
         b_ms, b_by = bound(nbytes, 10 * D * H * pairs, dtype)
         rows["band_attention_bwd"][name] = dict(
-            shape=[B, L, H, D], window=W, dtype="bfloat16", dropout=rate, ms=kernel_ms,
-            plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-            bytes=nbytes, operations=10 * D * H * pairs, card=card)
+            shape=[B, L, H, D], window=W, dtype="bfloat16", dropout=rate, ms=kernel_ms[rate],
+            ms_no_dropout=kernel_ms[0.0], graph_ms=device_ms[rate],
+            graph_ms_no_dropout=device_ms[0.0], passes_ms=passes_ms, plain_ms=plain_ms,
+            library_ms=library_ms,
+            library_call="autograd backward of that SDPA call (no dropout)",
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes, operations=10 * D * H * pairs,
+            earlier_ms=EARLIER_MS["band_attention_bwd"][name], card=card)
         emit("kernel_time", kernel="band_attention_bwd", case=name,
              **rows["band_attention_bwd"][name])
     return rows
@@ -645,7 +738,6 @@ def run_serving(seed, card):
     from recformer_tpu_torch.data.datasets import EvalDataset
     from recformer_tpu_torch.data.device_pipeline import assemble_for_config
     from recformer_tpu_torch.models.heads import RecformerForSeqRec, cosine_similarity
-    from recformer_tpu_torch.ops import window_attention as wa
     from recformer_tpu_torch.training.loops import encode_all_items, evaluate_seqrec
     from recformer_tpu_torch.training.steps import make_encode_items_step
 
@@ -667,12 +759,12 @@ def run_serving(seed, card):
     make_encode_items_step(cfg, model)(table, torch.arange(enc_bs, device=dev))
     torch.cuda.synchronize()
 
-    wa.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     emb = encode_all_items(model, table, cfg, batch_size=enc_bs)
     torch.cuda.synchronize()
     enc_s = time.perf_counter() - t0
-    enc_launches = wa.LAUNCHES
+    enc_launches, enc_tc = all_on_tensor_cores("encode")
     enc_forwards = math.ceil(n_items / enc_bs)
     if tuple(emb.shape) != (n_items, cfg.hidden_size) or not bool(torch.isfinite(emb).all()):
         raise AssertionError(f"bad catalog embeddings {tuple(emb.shape)}")
@@ -681,14 +773,14 @@ def run_serving(seed, card):
                              f"expected {n_layers * enc_forwards}")
     emit("serving_encode", items=n_items, batch=enc_bs, seq_len=cfg.item_seq_len,
          seconds=enc_s, items_per_s=n_items / enc_s, launches=enc_launches,
-         forwards=enc_forwards, card=card)
+         tensor_core_launches=enc_tc, forwards=enc_forwards, card=card)
 
-    wa.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     metrics = evaluate_seqrec(model, table, ds, emb, cfg, batch_size=eval_bs)
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
-    eval_launches = wa.LAUNCHES
+    eval_launches, eval_tc = all_on_tensor_cores("eval")
     eval_forwards = math.ceil(n_users / eval_bs)
     if not metrics or not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"bad eval metrics {metrics}")
@@ -697,7 +789,7 @@ def run_serving(seed, card):
                              f"expected {n_layers * eval_forwards}")
     emit("serving_eval", users=n_users, batch=eval_bs, seq_len=cfg.max_token_num,
          seconds=eval_s, users_per_s=n_users / eval_s, launches=eval_launches,
-         forwards=eval_forwards, metrics=metrics, card=card)
+         tensor_core_launches=eval_tc, forwards=eval_forwards, metrics=metrics, card=card)
 
     # the kernel path against the plain chunked twin on one eval batch
     plain = RecformerForSeqRec(cfg.replace(attention_impl="chunked")).to(dev).eval()
@@ -715,12 +807,12 @@ def run_serving(seed, card):
     with tempfile.TemporaryDirectory() as tmp:
         seqs = write_corpus(tmp, seed=seed)
         out = os.path.join(tmp, "recs.jsonl")
-        wa.LAUNCHES = 0
+        reset_counts()
         n = serve.main(["--data_path", tmp, "--sequences", os.path.join(tmp, "sequences.json"),
                         "--model_size", "base", "--attention_impl", "pallas",
                         "--batch_size", "4", "--encode_batch_size", "32", "--top_k", "10",
                         "--output", out, "--device", "cuda"])
-        serve_launches = wa.LAUNCHES
+        serve_launches, serve_tc = all_on_tensor_cores("serve")
         with open(out) as f:
             rows = [json.loads(line) for line in f]
     serve_forwards = math.ceil(64 / 32) + math.ceil(len(seqs) / 4)
@@ -732,9 +824,10 @@ def run_serving(seed, card):
     if serve_launches != n_layers * serve_forwards:
         raise AssertionError(f"serve launched the kernel {serve_launches} times, "
                              f"expected {n_layers * serve_forwards}")
-    emit("serving_cli", users=n, launches=serve_launches, forwards=serve_forwards,
-         first=rows[0])
-    return {"band_attention_fwd": enc_launches + eval_launches + serve_launches}
+    emit("serving_cli", users=n, launches=serve_launches, tensor_core_launches=serve_tc,
+         forwards=serve_forwards, first=rows[0])
+    return {"band_attention_fwd": enc_launches + eval_launches + serve_launches,
+            "band_attention_fwd_tc": enc_tc + eval_tc + serve_tc}
 
 
 # ---------------------------------------------------------------------------
@@ -755,6 +848,9 @@ def pretrain_world(cfg, seed, n_items=10_000, batch=8):
 
 
 KERNELS = ("band_attention_fwd", "band_attention_bwd") + LN_KERNELS
+# the counts a run reads: each kernel's, and the attention kernels' tensor-core
+# launches
+COUNTERS = KERNELS + ("band_attention_fwd_tc", "band_attention_bwd_tc")
 
 
 def reset_counts() -> None:
@@ -763,17 +859,28 @@ def reset_counts() -> None:
     from recformer_tpu_torch.ops import layernorm as tln
     from recformer_tpu_torch.ops import window_attention as wa
 
-    wa.LAUNCHES = wa.BWD_LAUNCHES = tel.LAUNCHES = tel.BWD_LAUNCHES = tln.BWD_LAUNCHES = 0
+    wa.LAUNCHES = wa.TC_LAUNCHES = wa.BWD_LAUNCHES = wa.BWD_TC_LAUNCHES = 0
+    tel.LAUNCHES = tel.BWD_LAUNCHES = tln.BWD_LAUNCHES = 0
 
 
 def read_counts() -> dict:
-    """Every kernel's launch count since the last reset, by kernel name."""
+    """Every count of COUNTERS since the last reset."""
     from recformer_tpu_torch.ops import embed_layernorm as tel
     from recformer_tpu_torch.ops import layernorm as tln
     from recformer_tpu_torch.ops import window_attention as wa
 
-    return dict(zip(KERNELS, (wa.LAUNCHES, wa.BWD_LAUNCHES, tel.LAUNCHES, tel.BWD_LAUNCHES,
-                              tln.BWD_LAUNCHES)))
+    return dict(zip(COUNTERS, (wa.LAUNCHES, wa.BWD_LAUNCHES, tel.LAUNCHES, tel.BWD_LAUNCHES,
+                               tln.BWD_LAUNCHES, wa.TC_LAUNCHES, wa.BWD_TC_LAUNCHES)))
+
+
+def all_on_tensor_cores(what) -> tuple:
+    """The attention forward's launches since the last reset, and those of
+    them on the tensor cores; raises unless they are all (bf16, base width)."""
+    counts = read_counts()
+    n, tc = counts["band_attention_fwd"], counts["band_attention_fwd_tc"]
+    if tc != n:
+        raise AssertionError(f"{what}: {n - tc} of {n} attention forwards left the tensor cores")
+    return n, tc
 
 
 def launches_per_step(cfg) -> dict:
@@ -781,10 +888,15 @@ def launches_per_step(cfg) -> dict:
     code: two towers, each one fused (2B, L) forward and its backward; the
     attention kernels once per layer, the embedding kernels once per tower,
     the LayerNorm backward twice per layer (the attention and feed-forward
-    blocks); the LM head's LayerNorm is flax's under every flag."""
+    blocks); the LM head's LayerNorm is flax's under every flag. In bf16
+    at the base head width and window every attention forward and backward
+    takes the tensor-core kernels."""
     towers, layers = 2, cfg.num_hidden_layers
     emb = towers if cfg.embed_ln_impl == "pallas" else 0
+    D = cfg.hidden_size // cfg.num_attention_heads
+    tc = sum(tensor_core_shape(cfg.compute_dtype, D, w, 1) for w in cfg.attention_window)
     return {"band_attention_fwd": towers * layers, "band_attention_bwd": towers * layers,
+            "band_attention_fwd_tc": towers * tc, "band_attention_bwd_tc": towers * tc,
             "embed_layernorm_fwd": emb, "embed_layernorm_bwd": emb,
             "layernorm_bwd": 2 * towers * layers if cfg.ln_impl == "pallas_bwd" else 0}
 
@@ -825,7 +937,7 @@ def run_pretrain_step(seed, card, phase="pretrain_step", baseline=None, **flags)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(m["loss"]) for m in metrics]
     expected = launches_per_step(cfg)
-    ok = (all(counts[k] == expected[k] * n for k in KERNELS)
+    ok = (all(counts[k] == expected[k] * n for k in COUNTERS)
           and all(math.isfinite(x) for x in losses))
     rates = dict(steps_per_s=n / secs, examples_per_s=B * n / secs,
                  peak_memory_gib=peak / 2 ** 30)
@@ -841,7 +953,7 @@ def run_pretrain_step(seed, card, phase="pretrain_step", baseline=None, **flags)
     emit(phase, config=f"RecformerConfig.base({', '.join(f'{k}={v!r}' for k, v in flags.items())})",
          batch=B, views=[[2 * B, cfg.max_token_num], [2 * B, cfg.item_seq_len]], steps=n,
          seconds=secs, **rates, **extra,
-         launches_per_step={k: counts[k] / n for k in KERNELS}, expected_per_step=expected,
+         launches_per_step={k: counts[k] / n for k in COUNTERS}, expected_per_step=expected,
          loss_first=losses[0], loss_last=losses[-1], card=card, ok=ok)
     if not ok:
         raise AssertionError(f"{phase}: launches {counts} over {n} steps (expected "
@@ -1025,6 +1137,7 @@ def run_encode_embed_kernel(seed, card):
     ok = (tuple(emb.shape) == (n_items, cfg.hidden_size) and bool(torch.isfinite(emb).all())
           and counts["embed_layernorm_fwd"] == forwards
           and counts["band_attention_fwd"] == cfg.num_hidden_layers * forwards
+          and counts["band_attention_fwd_tc"] == counts["band_attention_fwd"]
           and float(cos.min()) > 0.999)
     emit("encode_embed_kernel", items=n_items, batch=bs, seq_len=cfg.item_seq_len,
          seconds=secs, items_per_s=n_items / secs, launches=counts, forwards=forwards,
@@ -1065,6 +1178,7 @@ def run_pretrain_cli(seed, phase="pretrain_cli", extra=()):
     # two towers' forward once more
     expected = {k: v * res["steps"] for k, v in per_step.items()}
     expected["band_attention_fwd"] += per_step["band_attention_fwd"]
+    expected["band_attention_fwd_tc"] += per_step["band_attention_fwd_tc"]
     expected["embed_layernorm_fwd"] += per_step["embed_layernorm_fwd"]
     ok = (res["steps"] == 3 and res["updates"] == 1 and {"best.pt", "last.pt"} <= set(written)
           and counts == expected)
@@ -1138,12 +1252,20 @@ def main(argv=None) -> int:
             rows = times[name]
             err = max(errs[(n, torch.bfloat16)][name == "band_attention_bwd"]
                       for n in BASE_SHAPES)
+        # every number but the bound measured in this run: PR 3's times
+        # (earlier_ms) stay in the kernel_time lines
+        rows = {n: {k: v for k, v in r.items() if k != "earlier_ms"} for n, r in rows.items()}
         head = rows["sequence_tower"]
         by_phase = {p: c[name] for p, c in phases.items() if c.get(name)}
+        extra = {}
+        if name in ("band_attention_fwd", "band_attention_bwd"):
+            tc = sum(c.get(f"{name}_tc", 0) for c in phases.values())
+            extra["launches_by_path"] = {"tensor_core": tc,
+                                         "cuda_core": sum(by_phase.values()) - tc}
         return dict(
             name=name, route="cuda", source=f"recformer_tpu_torch/ops/csrc/{sources[name]}",
             replaces=replaces[name], launches=sum(by_phase.values()),
-            launches_by_phase=by_phase, max_abs_err=err, ms=head["ms"],
+            launches_by_phase=by_phase, **extra, max_abs_err=err, ms=head["ms"],
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape="sequence_tower", shapes=rows, card=card)
 

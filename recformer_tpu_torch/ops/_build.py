@@ -25,7 +25,8 @@ _CSRC = os.path.join(_HERE, "csrc")
 SOURCES = {name: os.path.join(_CSRC, f"{name}.cu")
            for name in ("band_attention_fwd", "band_attention_bwd", "embed_layernorm",
                         "layernorm_bwd")}
-HEADERS = tuple(os.path.join(_CSRC, h) for h in ("band_common.cuh", "row_reduce.cuh"))
+HEADERS = tuple(os.path.join(_CSRC, h)
+                for h in ("band_common.cuh", "band_mma.cuh", "row_reduce.cuh"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -37,6 +38,7 @@ _DROPOUT = [_I, _U, _U, _F]  # on, seed, threshold, 1/(1-rate)
 # C signatures, by library name, then function name: (argtypes, restype)
 SIGNATURES = {
     "band_attention_fwd": {
+        "band_attention_fwd_path": ([_I, _I, _I, _I], _I),  # dtype D G window
         "band_attention_fwd": (
             [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # dtype, 9 inputs, out
              _I, _I, _I, _I, _I, _I,                       # B L H D G window
@@ -45,6 +47,7 @@ SIGNATURES = {
     },
     "band_attention_bwd": {
         "band_attention_bwd_tile": ([_I, _I, _I], _I),  # D G window
+        "band_attention_bwd_path": ([_I, _I, _I, _I], _I),  # dtype D G window
         "band_attention_bwd": (
             [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,      # dtype, 9 inputs
              _P, _P, _P, _P, _P, _P,                       # dq dk dv dg stats ws

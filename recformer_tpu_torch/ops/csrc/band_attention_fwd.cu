@@ -10,13 +10,24 @@
 //   gk, gv, gout : (B, G, H*D)   float or bf16
 //   gvalid       : (B, G)        int32
 //
-// Two kernels compute the same function; the entry point picks by what it
-// can observe of the inputs:
+// Two kernels compute the same function; the entry point picks by dtype and
+// shape:
 // - band_attention_fwd_tc_kernel: bf16 with D == W == 64 (the Recformer-base
-//   shapes), G <= 8, 16-byte aligned operands. Tensor cores (mma.sync
-//   m16n8k16, bf16 in, fp32 accumulate). One block of 4 warps per 64 query
-//   rows of one (batch, head); a warp owns 16 rows and the 80 band keys they
-//   can see, plus one 8-wide tile of global keys.
+//   shapes), G <= 8 (band_attention_fwd_path); its operands must be 16-byte
+//   aligned, which the wrapper ensures. Tensor cores (mma.sync
+//   m16n8k16, bf16 in, fp32 accumulate). One block of 8 warps per 128 query
+//   rows of one (batch, head), so at L <= 128 every K/V row is staged once
+//   and at L = 1024 1.5 times; a warp owns 16 rows and the 80 band keys they
+//   can see, plus one 8-wide tile of global keys. The block stages with
+//   cp.async in two groups (Q and K, then V), zero-filling rows off [0, L)
+//   without reading them, so V arrives while the scores are computed; the
+//   output leaves through shared memory in 16-byte stores. Two blocks fit
+//   on an SM (79 KB of shared memory, 128 registers a thread). Bytes bound
+//   the function (about 4*D flops per pair against 8*D bytes per row and
+//   head), but the kernel is held back inside the SM: a persistent grid of
+//   one block per SM that prefetched the next tile into a second stage ran
+//   slower (PERF.md), since 8 warps an SM cannot hide the latency of the
+//   score arithmetic.
 // - band_attention_fwd_kernel: every other shape and float32. CUDA cores; a
 //   warp owns one query row at a time.
 
@@ -25,6 +36,7 @@
 #include <stdint.h>
 
 #include "band_common.cuh"
+#include "band_mma.cuh"
 
 namespace {
 
@@ -230,48 +242,18 @@ namespace tc {
 constexpr int D = 64;
 constexpr int W = 64;
 constexpr int HALF = W / 2;
-constexpr int WARPS = 4;
+constexpr int WARPS = 8;
 constexpr int TILE = 16 * WARPS;      // query rows per block
 constexpr int BAND = TILE + W;        // band rows per block
 constexpr int NT = (16 + W) / 8;      // 8-key tiles one warp's 16 rows can see
 constexpr int GMAX = 8;               // global keys: one 8-wide tile
 constexpr int GPAD = 16;              // global rows padded to one k-step of P.V
 constexpr int S = D + 8;              // smem row stride (bf16): 144 B, ldmatrix without conflicts
+constexpr int CH = D / 8;             // 16-byte chunks per row
 constexpr int SMEM = (TILE + 2 * BAND + 2 * GPAD) * S * 2 + BAND * 4;
 }  // namespace tc
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__global__ void __launch_bounds__(tc::WARPS * 32)
+__global__ void __launch_bounds__(tc::WARPS * 32, 2)
 band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v,
@@ -292,58 +274,52 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int lo = t0 - HALF;  // band row 0 holds key lo (may lie before 0)
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // (TILE, S) scaled queries
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // (TILE, S) scaled queries, then the output
   bf16* ks = qs + TILE * S;                       // (BAND, S)
   bf16* vs = ks + BAND * S;                       // (BAND, S)
   bf16* gks = vs + BAND * S;                      // (GPAD, S)
   bf16* gvs = gks + GPAD * S;                     // (GPAD, S)
   int* kl = reinterpret_cast<int*>(gvs + GPAD * S);  // (BAND) keyloc, 0 outside [0, L)
 
-  // stage the tile in 16-byte chunks (8 bf16); rows outside [0, L) are zero
+  // stage with cp.async in two groups: Q, K and the global keys first, V
+  // and the global values behind them, so that V arrives while the scores
+  // are computed. Rows outside [0, L) (and global rows >= G) are zero-filled
+  // by the copy without reading memory.
   const size_t head = (size_t)b * L * HD + (size_t)h * D;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int c = threadIdx.x; c < BAND * (D / 8); c += blockDim.x) {
-    const int r = c / (D / 8);
-    const int col = (c % (D / 8)) * 8;
-    const int j = lo + r;
-    uint4 kc = zero, vc = zero;
-    if (j >= 0 && j < L) {
-      kc = *reinterpret_cast<const uint4*>(k + head + (size_t)j * HD + col);
-      vc = *reinterpret_cast<const uint4*>(v + head + (size_t)j * HD + col);
-    }
-    *reinterpret_cast<uint4*>(ks + r * S + col) = kc;
-    *reinterpret_cast<uint4*>(vs + r * S + col) = vc;
+  const size_t ghead = (size_t)b * G * HD + (size_t)h * D;
+  for (int c = threadIdx.x; c < TILE * CH; c += blockDim.x) {
+    const int r = c / CH, col = (c % CH) * 8, i = t0 + r;
+    band::cp_async16(qs + r * S + col, q + head + (size_t)(i < L ? i : 0) * HD + col, i < L);
   }
-  for (int c = threadIdx.x; c < TILE * (D / 8); c += blockDim.x) {
-    const int r = c / (D / 8);
-    const int col = (c % (D / 8)) * 8;
-    const int i = t0 + r;
-    uint4 qc = zero;
-    if (i < L) {
-      qc = *reinterpret_cast<const uint4*>(q + head + (size_t)i * HD + col);
-      // q * scale rounds to bf16, as the TPU kernel computes it
-      bf16* e = reinterpret_cast<bf16*>(&qc);
-#pragma unroll
-      for (int x = 0; x < 8; ++x) e[x] = __float2bfloat16_rn(__bfloat162float(e[x]) * scale);
-    }
-    *reinterpret_cast<uint4*>(qs + r * S + col) = qc;
+  for (int c = threadIdx.x; c < BAND * CH; c += blockDim.x) {
+    const int r = c / CH, col = (c % CH) * 8, j = lo + r;
+    const bool ok = j >= 0 && j < L;
+    band::cp_async16(ks + r * S + col, k + head + (size_t)(ok ? j : 0) * HD + col, ok);
   }
-  for (int c = threadIdx.x; c < GPAD * (D / 8); c += blockDim.x) {
-    const int g = c / (D / 8);
-    const int col = (c % (D / 8)) * 8;
-    uint4 kc = zero, vc = zero;
-    if (g < G) {
-      const size_t off = ((size_t)b * G + g) * HD + (size_t)h * D + col;
-      kc = *reinterpret_cast<const uint4*>(gk + off);
-      vc = *reinterpret_cast<const uint4*>(gv + off);
-    }
-    *reinterpret_cast<uint4*>(gks + g * S + col) = kc;
-    *reinterpret_cast<uint4*>(gvs + g * S + col) = vc;
+  for (int c = threadIdx.x; c < GPAD * CH; c += blockDim.x) {
+    const int g = c / CH, col = (c % CH) * 8;
+    band::cp_async16(gks + g * S + col, gk + ghead + (size_t)(g < G ? g : 0) * HD + col, g < G);
   }
+  band::cp_async_commit();
+  for (int c = threadIdx.x; c < BAND * CH; c += blockDim.x) {
+    const int r = c / CH, col = (c % CH) * 8, j = lo + r;
+    const bool ok = j >= 0 && j < L;
+    band::cp_async16(vs + r * S + col, v + head + (size_t)(ok ? j : 0) * HD + col, ok);
+  }
+  for (int c = threadIdx.x; c < GPAD * CH; c += blockDim.x) {
+    const int g = c / CH, col = (c % CH) * 8;
+    band::cp_async16(gvs + g * S + col, gv + ghead + (size_t)(g < G ? g : 0) * HD + col, g < G);
+  }
+  band::cp_async_commit();
   for (int r = threadIdx.x; r < BAND; r += blockDim.x) {
     const int j = lo + r;
     kl[r] = (j >= 0 && j < L) ? keyloc[(size_t)b * L + j] : 0;
   }
+  band::cp_async_wait<1>();
+  // q * scale rounds to bf16, as the TPU kernel computes it; each thread
+  // scales the chunks it copied
+  for (int c = threadIdx.x; c < TILE * CH; c += blockDim.x)
+    if (t0 + c / CH < L) band::scale_chunk(qs + (c / CH) * S + (c % CH) * 8, scale);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
@@ -355,7 +331,7 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   uint32_t qa[D / 16][4];
 #pragma unroll
   for (int kc = 0; kc < D / 16; ++kc)
-    ldsm_x4(qa[kc], qs + (r0 + (lane & 15)) * S + kc * 16 + (lane >> 4) * 8);
+    band::ldsm_x4(qa[kc], qs + (r0 + (lane & 15)) * S + kc * 16 + (lane >> 4) * 8);
 
   // scores: NT band tiles and one global tile, fp32
   float sc[NT][4];
@@ -367,9 +343,9 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int dc = 0; dc < D / 32; ++dc) {
       uint32_t bk[4];
-      ldsm_x4(bk, kb + dc * 32);
-      mma_bf16(sc[nt], qa[2 * dc], bk[0], bk[1]);
-      mma_bf16(sc[nt], qa[2 * dc + 1], bk[2], bk[3]);
+      band::ldsm_x4(bk, kb + dc * 32);
+      band::mma_bf16(sc[nt], qa[2 * dc], bk[0], bk[1]);
+      band::mma_bf16(sc[nt], qa[2 * dc + 1], bk[2], bk[3]);
     }
   }
   {
@@ -377,9 +353,9 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int dc = 0; dc < D / 32; ++dc) {
       uint32_t bk[4];
-      ldsm_x4(bk, kb + dc * 32);
-      mma_bf16(sg, qa[2 * dc], bk[0], bk[1]);
-      mma_bf16(sg, qa[2 * dc + 1], bk[2], bk[3]);
+      band::ldsm_x4(bk, kb + dc * 32);
+      band::mma_bf16(sg, qa[2 * dc], bk[0], bk[1]);
+      band::mma_bf16(sg, qa[2 * dc + 1], bk[2], bk[3]);
     }
   }
 
@@ -388,11 +364,13 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
+    const int c0 = nt * 8 + 2 * tq;
+    const int2 kp = *reinterpret_cast<const int2*>(kl + r0 + c0);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int rr = gq + (e >> 1) * 8;
-      const int c = nt * 8 + 2 * tq + (e & 1);
-      const bool ok = c >= rr && c <= rr + W && kl[r0 + c] != 0;
+      const int c = c0 + (e & 1);
+      const bool ok = c >= rr && c <= rr + W && ((e & 1) ? kp.y : kp.x) != 0;
       sc[nt][e] = ok ? sc[nt][e] : kNegInf;
       mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
     }
@@ -416,50 +394,43 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      sc[nt][e] = expf(sc[nt][e] - mx[e >> 1]);
+      sc[nt][e] = band::exp_diff(sc[nt][e], mx[e >> 1]);
       sum[e >> 1] += sc[nt][e];
     }
   }
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    sg[e] = expf(sg[e] - mx[e >> 1]);
+    sg[e] = band::exp_diff(sg[e], mx[e >> 1]);
     sum[e >> 1] += sg[e];
   }
-  float denom[2];
+  float inv[2];  // 1 / the clamped row sum
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
     sum[x] += __shfl_xor_sync(0xffffffffu, sum[x], 1);
     sum[x] += __shfl_xor_sync(0xffffffffu, sum[x], 2);
-    denom[x] = fmaxf(sum[x], 1e-30f);
+    inv[x] = 1.f / fmaxf(sum[x], 1e-30f);
   }
 
   // dropout on the exponentials after the row sum: kept ones scaled by
-  // 1/(1-rate). A thread's two band columns (lo + r0 + nt*8 + 2tq, +1) start
-  // at an even key, so they share one Philox draw.
+  // 1/(1-rate); one Philox call per four adjacent columns of a row. A band
+  // column off [0, L) meets a zero V row, so its bit is never seen.
   if (drop.on) {
+    const int i0 = t0 + r0 + gq;
 #pragma unroll
-    for (int x = 0; x < 2; ++x) {
-      const int i = t0 + r0 + gq + 8 * x;
+    for (int nt = 0; nt < NT; ++nt) {
+      bool kp[4];
+      band::keep_quad(drop, b, h, i0, i0 + 8, lo + r0 + nt * 8 + 2 * tq, tq, kp);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int j = lo + r0 + nt * 8 + 2 * tq;
-        if (j >= 0 && j < L) {
-          const uint4 w = band::dropout_words(drop, b, h, i, j);
-          sc[nt][2 * x] = band::keep_word(drop, w, j) ? sc[nt][2 * x] * drop.scale : 0.f;
-          if (j + 1 < L)
-            sc[nt][2 * x + 1] =
-                band::keep_word(drop, w, j + 1) ? sc[nt][2 * x + 1] * drop.scale : 0.f;
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int g = 2 * tq + e;
-        if (g < G)
-          sg[2 * x + e] =
-              band::dropout_keep(drop, b, h, i, L + g) ? sg[2 * x + e] * drop.scale : 0.f;
-      }
+      for (int e = 0; e < 4; ++e) sc[nt][e] = kp[e] ? sc[nt][e] * drop.scale : 0.f;
     }
+    bool kp[4];
+    band::keep_global(drop, b, h, i0, i0 + 8, L, tq, kp);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sg[e] = kp[e] ? sg[e] * drop.scale : 0.f;
   }
+
+  band::cp_async_wait<0>();
+  __syncthreads();
 
   // out = P.V: the score tiles of 16 keys are, register for register, the
   // A fragments of the next product
@@ -468,52 +439,60 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int dt = 0; dt < D / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < NT / 2; ++kk) {
-    const uint32_t a[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                           pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                           pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                           pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+    const uint32_t a[4] = {band::pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+                           band::pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+                           band::pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                           band::pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
     const bf16* vb = vs + (r0 + kk * 16 + (lane & 15)) * S + (lane >> 4) * 8;
 #pragma unroll
     for (int dp = 0; dp < D / 16; ++dp) {
       uint32_t bv[4];
-      ldsm_x4_trans(bv, vb + dp * 16);
-      mma_bf16(o[2 * dp], a, bv[0], bv[1]);
-      mma_bf16(o[2 * dp + 1], a, bv[2], bv[3]);
+      band::ldsm_x4_trans(bv, vb + dp * 16);
+      band::mma_bf16(o[2 * dp], a, bv[0], bv[1]);
+      band::mma_bf16(o[2 * dp + 1], a, bv[2], bv[3]);
     }
   }
   {
-    const uint32_t a[4] = {pack_bf16(sg[0], sg[1]), pack_bf16(sg[2], sg[3]), 0u, 0u};
+    const uint32_t a[4] = {band::pack_bf16(sg[0], sg[1]), band::pack_bf16(sg[2], sg[3]), 0u, 0u};
     const bf16* vb = gvs + (lane & 15) * S + (lane >> 4) * 8;
 #pragma unroll
     for (int dp = 0; dp < D / 16; ++dp) {
       uint32_t bv[4];
-      ldsm_x4_trans(bv, vb + dp * 16);
-      mma_bf16(o[2 * dp], a, bv[0], bv[1]);
-      mma_bf16(o[2 * dp + 1], a, bv[2], bv[3]);
+      band::ldsm_x4_trans(bv, vb + dp * 16);
+      band::mma_bf16(o[2 * dp], a, bv[0], bv[1]);
+      band::mma_bf16(o[2 * dp + 1], a, bv[2], bv[3]);
     }
   }
 
-  // divide, fused epilogue, store
+  // divide and fused epilogue into the warp's own 16 rows of qs (only this
+  // warp read them), then 16-byte stores of whole rows
+  bf16* ow = qs + r0 * S;
+  const bf16* grow = gout + ghead;
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
     const int i = t0 + r0 + gq + 8 * x;
-    if (i >= L) continue;
-    const int mr = fuse_epilogue ? mrow[(size_t)b * L + i] : 1;
-    const bf16* grow = gout + (size_t)b * G * HD + (size_t)h * D;
+    const int mr = (fuse_epilogue && i < L) ? mrow[(size_t)b * L + i] : 1;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
       const int col = dt * 8 + 2 * tq;
-      float v0 = o[dt][2 * x] / denom[x];
-      float v1 = o[dt][2 * x + 1] / denom[x];
+      float v0 = o[dt][2 * x] * inv[x];
+      float v1 = o[dt][2 * x + 1] * inv[x];
       if (mr == 2) {
         v0 = __bfloat162float(grow[col]);
         v1 = __bfloat162float(grow[col + 1]);
       } else if (mr != 1) {
         v0 = v1 = 0.f;
       }
-      *reinterpret_cast<__nv_bfloat162*>(out + head + (size_t)i * HD + col) =
+      *reinterpret_cast<__nv_bfloat162*>(ow + (gq + 8 * x) * S + col) =
           __floats2bfloat162_rn(v0, v1);
     }
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * CH; c += 32) {
+    const int r = c / CH, col = (c % CH) * 8, i = t0 + r0 + r;
+    if (i < L)
+      *reinterpret_cast<uint4*>(out + head + (size_t)i * HD + col) =
+          *reinterpret_cast<const uint4*>(ow + r * S + col);
   }
 }
 
@@ -535,12 +514,24 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* k
   return cudaGetLastError();
 }
 
+bool tc_shape(int dtype, int D, int G, int window) {
+  return dtype == 1 && D == tc::D && window == tc::W && G <= tc::GMAX;
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 }  // namespace
 
+// Which kernel band_attention_fwd launches for these sizes: 1 the
+// tensor-core kernel (bf16, D == W == 64, G <= 8), 0 the CUDA-core one.
+extern "C" int band_attention_fwd_path(int dtype, int D, int G, int window) {
+  return tc_shape(dtype, D, G, window) ? 1 : 0;
+}
+
 // dtype: 0 = float32, 1 = bfloat16. Dropout (band_common.cuh) is on when
-// ``dropout`` is non-zero. Returns the launch's cudaError_t.
+// ``dropout`` is non-zero. Returns the launch's cudaError_t. The tensor-core
+// kernel takes 16-byte aligned operands and returns
+// cudaErrorMisalignedAddress otherwise.
 extern "C" int band_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                   const void* keyloc, const void* gk, const void* gv,
                                   const void* gvalid, const void* mrow, const void* gout,
@@ -550,10 +541,12 @@ extern "C" int band_attention_fwd(int dtype, const void* q, const void* k, const
   if (B <= 0 || L <= 0 || H <= 0 || G <= 0 || window <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout drop{seed, threshold, drop_scale, dropout != 0};
-  if (dtype == 1 && D == tc::D && window == tc::W && G <= tc::GMAX && aligned16(q) &&
-      aligned16(k) && aligned16(v) && aligned16(gk) && aligned16(gv))
+  if (tc_shape(dtype, D, G, window)) {
+    for (const void* p : {q, k, v, gk, gv, static_cast<const void*>(out)})
+      if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
     return (int)launch_tc(q, k, v, keyloc, gk, gv, gvalid, mrow, gout, out, B, L, H, G, scale,
                           fuse_epilogue, drop, s);
+  }
   if (dtype == 0)
     return (int)dispatch_simt<float>(D, q, k, v, keyloc, gk, gv, gvalid, mrow, gout, out, B,
                                      L, H, G, window, scale, fuse_epilogue, drop, s);

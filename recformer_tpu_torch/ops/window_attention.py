@@ -26,13 +26,24 @@ and ``10*D`` (backward) flops per (query, key) pair and head against
 row and head in bf16, far below the card's ~295 flops per byte in bf16, so
 the bound is HBM bytes. A thread block owns a tile of rows of one (batch,
 head) and stages the tile's K/V band in shared memory once; scores never
-leave the chip. The forward has two kernels and picks one from the inputs:
-for bf16 at ``D == W == 64`` (the Recformer-base shapes) a block of four
-warps takes 64 query rows on the tensor cores (``mma.sync`` m16n8k16, fp32
-accumulate) and feeds the exponentials, rounded to bf16, straight back as
-the A operand of ``P.V``; every other shape, and float32, takes a CUDA-core
-kernel in which a warp owns one query row at a time. The backward is
-CUDA-core only for now. ``PERF.md`` has the measured times beside the bound.
+leave the chip. Each kernel has two versions and picks one from what it can
+observe of the inputs. For bf16 at ``D == W == 64`` with at most 8 global
+columns (every Recformer-base shape, serving and training) both run on the
+tensor cores (``mma.sync`` m16n8k16, bf16 in, fp32 accumulate), staging
+bf16 tiles with ``cp.async``: the forward takes 128 query rows a block and
+feeds the exponentials, rounded to bf16, straight back as the A operand of
+``P.V``; the backward's query pass does the same with ``dS`` for ``dQ``,
+and its key pass swaps the roles of Q and K for ``dK``/``dV``. The rounding
+points are the TPU kernel's, so bf16 operands into the products give them
+for free. Float32 and every other shape take the CUDA-core versions, in
+which a warp owns one row at a time: they serve the float32 gradient
+checks and the small test shapes, where the tensor cores' tiles do not fit.
+The choice is made once, in C (``band_attention_{fwd,bwd}_path``), and the
+wrapper copies the operands to 16-byte aligned memory for the tensor-core
+kernels (a misaligned operand is an error there, never a silent switch to
+the CUDA-core kernel). ``TC_LAUNCHES`` and ``BWD_TC_LAUNCHES`` count the
+tensor-core launches. ``PERF.md``
+has the measured times beside the bound.
 
 Dropout is one exact function of absolute coordinates,
 ``keep(seed, b, h, i, c) = philox4x32_10((c >> 2, i, h, b), (seed, 0))[c & 3]
@@ -52,6 +63,7 @@ function; on CUDA tensors it launches the kernels or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -60,9 +72,13 @@ from ._build import ptr as _ptr
 from .attention import _batch_index, _global_rows, attention_scale, global_prefix_indices
 
 # Launches of the CUDA kernels since the last reset: one per forward and one
-# per backward ``band_attention`` call on CUDA tensors.
+# per backward ``band_attention`` call on CUDA tensors; TC_LAUNCHES and
+# BWD_TC_LAUNCHES count the launches that took the tensor-core kernels (the
+# rest of LAUNCHES and BWD_LAUNCHES took the CUDA-core ones).
 LAUNCHES = 0
+TC_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BWD_TC_LAUNCHES = 0
 
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
 _MASK32 = 0xFFFFFFFF
@@ -127,9 +143,18 @@ def _keep_mask(seed, rate, B, L, H, window, G, device):
                         i[None, :, :, None], cols[None, :, None, :])
 
 
+@functools.lru_cache(maxsize=None)
 def _drop_scale(rate: float) -> float:
     """``1/(1-rate)`` as float32, the value both kernels multiply by."""
     return float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_scales(D: int, dt: torch.dtype):
+    """``1/sqrt(D)`` rounded to the input type (q's scale) and to float32
+    (dq's), computed once per (D, dtype) rather than on every launch."""
+    return (float(torch.tensor(1.0 / D ** 0.5, dtype=dt)),
+            float(torch.tensor(1.0 / D ** 0.5, dtype=torch.float32)))
 
 
 # ---------------------------------------------------------------------------
@@ -296,8 +321,8 @@ def _dropout_args(rate: float, seed: int):
 
 def _launch(q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, num_heads, window,
             fuse_epilogue, dropout_rate=0.0, seed=0):
-    global LAUNCHES
-    from ._build import load_library
+    global LAUNCHES, TC_LAUNCHES
+    from ._build import aligned, load_library
 
     (q2, k2, v2, gk, gv, gout), (keyloc, gvalid, mrow) = _check(
         q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, num_heads)
@@ -306,9 +331,12 @@ def _launch(q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, num_heads, window,
     D = HD // H
     G = gk.shape[1]
     dt = q2.dtype
-    out = torch.empty_like(q2)
-    scale = float(torch.tensor(1.0 / D ** 0.5, dtype=dt))
     lib = load_library("band_attention_fwd")
+    tensor_cores = lib.band_attention_fwd_path(_DTYPE_CODES[dt], D, G, window) == 1
+    if tensor_cores:  # its 16-byte copies need aligned operands
+        q2, k2, v2, gk, gv = (aligned(t) for t in (q2, k2, v2, gk, gv))
+    out = torch.empty_like(q2)
+    scale, _ = _kernel_scales(D, dt)
     stream = torch.cuda.current_stream(q2.device).cuda_stream
     with torch.cuda.device(q2.device):
         err = lib.band_attention_fwd(
@@ -319,6 +347,7 @@ def _launch(q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, num_heads, window,
     if err != 0:
         raise RuntimeError(f"band_attention_fwd launch failed: CUDA error {err}")
     LAUNCHES += 1
+    TC_LAUNCHES += tensor_cores
     return out
 
 
@@ -337,8 +366,8 @@ def bwd_query_tile(head_dim: int, num_globals: int, window: int) -> int:
 
 def _launch_bwd(q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, dout, num_heads, window,
                 fuse_epilogue, dropout_rate=0.0, seed=0):
-    global BWD_LAUNCHES
-    from ._build import load_library
+    global BWD_LAUNCHES, BWD_TC_LAUNCHES
+    from ._build import aligned, load_library
 
     (q2, k2, v2, gk, gv, gout), (keyloc, gvalid, mrow) = _check(
         q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, num_heads)
@@ -351,14 +380,16 @@ def _launch_bwd(q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, dout, num_heads,
     dt = q2.dtype
     dout = dout.to(dt).contiguous()
     lib = load_library("band_attention_bwd")
+    tensor_cores = lib.band_attention_bwd_path(_DTYPE_CODES[dt], D, G, window) == 1
+    if tensor_cores:  # its 16-byte copies need aligned operands
+        q2, k2, v2, gk, gv, dout = (aligned(t) for t in (q2, k2, v2, gk, gv, dout))
     n_tiles = -(-L // bwd_query_tile(D, G, window))
     dq, dk, dv = (torch.empty_like(q2) for _ in range(3))
     f32 = dict(dtype=torch.float32, device=q2.device)
     dg = torch.empty((3, B, G, HD), **f32)
     stats = torch.empty((B, H, L, 3), **f32)
     ws = torch.empty((3, B, H, n_tiles, G, D), **f32)
-    q_scale = float(torch.tensor(1.0 / D ** 0.5, dtype=dt))
-    dq_scale = float(torch.tensor(1.0 / D ** 0.5, dtype=torch.float32))
+    q_scale, dq_scale = _kernel_scales(D, dt)
     stream = torch.cuda.current_stream(q2.device).cuda_stream
     with torch.cuda.device(q2.device):
         err = lib.band_attention_bwd(
@@ -370,6 +401,7 @@ def _launch_bwd(q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, dout, num_heads,
     if err != 0:
         raise RuntimeError(f"band_attention_bwd launch failed: CUDA error {err}")
     BWD_LAUNCHES += 1
+    BWD_TC_LAUNCHES += tensor_cores
     return dq, dk, dv, dg[0], dg[1], dg[2]
 
 

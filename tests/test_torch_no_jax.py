@@ -47,7 +47,7 @@ def test_sources_name_no_jax():
     assert len(sources) > 20
     names = {os.path.basename(p) for p in sources}
     assert {"embed_layernorm.cu", "layernorm_bwd.cu", "row_reduce.cuh", "layernorm.py",
-            "embed_layernorm.py"} <= names
+            "embed_layernorm.py", "band_mma.cuh"} <= names
     for path in sources:
         with open(path) as f:
             text = f.read()
