@@ -25,17 +25,22 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    with an explicit band+global mask, and its backward, both without
    dropout) at the base shapes, median of per-launch CUDA-event times and
    the device time per launch from a CUDA graph (the backward's also by
-   pass, from ``torch.profiler``), beside the least time the card could
-   take and the times before the tensor-core redesign;
+   pass, from ``torch.profiler``; SDPA's forward and backward also from a
+   graph), beside the least time the card could take and the times before
+   the tensor-core redesign;
 6. ln_kernel_check: the embedding LayerNorm forward and backward and the
    LayerNorm backward against their plain versions at the main path's rows
-   (16,384, 2,048 and 32,768 of 768), 1,000 rows and a narrow row of 64,
-   float32 and bfloat16: the forward on max abs error (<= 1e-5) or one bf16
-   ulp, dx/dgamma/dbeta on max|err| / max|ref| (<= 1e-4 / 1e-2), and
-   dgamma/dbeta bitwise equal over two calls;
+   (16,384, 2,048 and 32,768 of 768), 1,000 rows, a narrow row of 64 and
+   the backward's grid edges (1, 2,051 and 131,072 rows), float32 and
+   bfloat16: the forward on max abs error (<= 1e-5) or one bf16 ulp,
+   dx/dgamma/dbeta on max|err| / max|ref| (<= 1e-4 / 1e-2), dgamma/dbeta
+   bitwise equal over two calls and over two replays of a CUDA graph, and
+   the LayerNorm backward's dx from a float32 gamma off the bf16 grid equal
+   bit for bit to its dx from that gamma rounded (the kernel rounds it);
 7. ln_kernel_time: the three at their main-path shapes beside their plain
-   versions, ``F.layer_norm`` (forward, or its autograd backward) and the
-   bound;
+   versions, ``F.layer_norm`` (forward, or its backward: host-timed through
+   autograd and by graph through ``aten.native_layer_norm_backward``) and
+   the bound, with the device kernels one call runs (one each);
 8. serving: Recformer-base (random weights from ``--seed``) encodes a
    synthetic 10,000-item catalog, ranks it for 256 users, and the serve CLI
    answers a few users;
@@ -43,9 +48,11 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    pooled cosine against the default path > 0.999;
 10. pretrain_step: 20 base-width pretraining steps at batch 8 (two views,
     fused clean+MLM towers, dropout 0.1, AdamW), steps/s, the whole-word
-    MLM's time, peak memory; then 10 steps on one fixed batch with dropout
+    MLM's time, peak memory, the device kernels of one step
+    (``torch.profiler``); then 10 steps on one fixed batch with dropout
     off, whose loss must fall; pretrain_step_ln_kernels: the same under
-    ``embed_ln_impl='pallas'`` and ``ln_impl='pallas_bwd'``, beside it;
+    ``embed_ln_impl='pallas'`` and ``ln_impl='pallas_bwd'``, beside it, each
+    LayerNorm kernel launch one device kernel;
     pretrain_turns: both configurations timed in alternating blocks;
 11. pretrain_vs_chunked and pretrain_ln_kernels_vs_plain: the float32
     gradients of one deterministic step through the attention kernels
@@ -402,6 +409,22 @@ def sdpa_bwd_call(ops, H, D, window, dout):
     return lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
 
 
+def sdpa_bwd_graph_ms(ops, H, D, window, dout):
+    """The SDPA backward's device time per call from a CUDA graph: the
+    forward runs on a side stream, so autograd launches the backward there
+    and the graph captures it. Returns (ms, how), ms None if capture
+    failed (``how`` then says why; the host-timed figure stands alone)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call = sdpa_bwd_call(ops, H, D, window, dout)
+    try:
+        return graph_launch_ms(call, stream=side), "captured on the forward's stream"
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return None, f"CUDA-graph capture failed: {str(e)[:200]}"
+
+
 def bound(nbytes, ops_count, dtype):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops_count / PEAK_OPS[dtype] * 1e3
@@ -466,6 +489,7 @@ def time_kernels(gen, card):
             plain_ms = median_launch_ms(lambda: wa.window_attention_plain(**ops, **common),
                                         n=10, warmup=1)
             library_ms = median_launch_ms(sdpa_call(ops, H, D, W))
+            library_graph_ms = graph_launch_ms(sdpa_call(ops, H, D, W))
         nbytes = (4 * B * L * H * D * elt + 3 * B * G * H * D * elt
                   + 2 * B * L * 4 + B * G * 4)
         b_ms, b_by = bound(nbytes, 4 * D * H * pairs, dtype)
@@ -473,6 +497,7 @@ def time_kernels(gen, card):
             shape=[B, L, H, D], window=W, dtype="bfloat16", ms=kernel_ms[0.0],
             ms_dropout=kernel_ms[rate], graph_ms=device_ms[0.0],
             graph_ms_dropout=device_ms[rate], plain_ms=plain_ms, library_ms=library_ms,
+            library_graph_ms=library_graph_ms,
             library_call="scaled_dot_product_attention, band+global boolean mask",
             bound_ms=b_ms, bound_by=b_by, bytes=nbytes, operations=4 * D * H * pairs,
             earlier_ms=EARLIER_MS["band_attention_fwd"][name], card=card)
@@ -490,6 +515,7 @@ def time_kernels(gen, card):
             lambda: wa.window_attention_bwd_plain(**ops, dout=dout, **common,
                                                   dropout_rate=rate, seed=5), n=5, warmup=1)
         library_ms = median_launch_ms(sdpa_bwd_call(ops, H, D, W, dout))
+        library_graph_ms, library_graph_note = sdpa_bwd_graph_ms(ops, H, D, W, dout)
         # q, k, v, dout read; dq, dk, dv written; keyloc, mrow and gvalid
         # read; gk, gv read; dgk, dgv, dgout written (fp32, as the TPU
         # kernel's). The kernel's own scratch (row statistics, tile
@@ -501,7 +527,8 @@ def time_kernels(gen, card):
             shape=[B, L, H, D], window=W, dtype="bfloat16", dropout=rate, ms=kernel_ms[rate],
             ms_no_dropout=kernel_ms[0.0], graph_ms=device_ms[rate],
             graph_ms_no_dropout=device_ms[0.0], passes_ms=passes_ms, plain_ms=plain_ms,
-            library_ms=library_ms,
+            library_ms=library_ms, library_graph_ms=library_graph_ms,
+            library_graph_note=library_graph_note,
             library_call="autograd backward of that SDPA call (no dropout)",
             bound_ms=b_ms, bound_by=b_by, bytes=nbytes, operations=10 * D * H * pairs,
             earlier_ms=EARLIER_MS["band_attention_bwd"][name], card=card)
@@ -521,25 +548,38 @@ LN_FWD_TOL = 1e-5  # float32 forward, max abs; bf16: one bf16 ulp of each refere
 # means summed in another order) is larger than its own bf16 ulp
 LN_ULP_FLOOR = 2.0 ** -8
 # (rows, H): the pretraining towers (2B x 1024 and 2B x 128 at batch 8), the
-# encode chunk (256 x 128), a row count no power of two divides, a narrow row
+# encode chunk (256 x 128), a row count no power of two divides, a narrow row,
+# and the backward's persistent grid's edges: one row (every block but one
+# idle), a multiple of 8 plus 3 past the item tower (the grid's warps get
+# unequal rows), and rows enough that every warp walks a hundred and more
 LN_SHAPES = {"sequence_tower": (16384, 768), "item_tower": (2048, 768),
-             "encode_chunk": (32768, 768), "ragged_rows": (1000, 768), "narrow": (1000, 64)}
+             "encode_chunk": (32768, 768), "ragged_rows": (1000, 768), "narrow": (1000, 64),
+             "one_row": (1, 768), "grid_edge": (2051, 768), "many_rows": (131072, 768)}
 LN_KERNELS = ("embed_layernorm_fwd", "embed_layernorm_bwd", "layernorm_bwd")
 
 
-def graph_launch_ms(fn, n: int = 25) -> float:
-    """Device time per call: ``n`` calls captured in one CUDA graph and
-    replayed (median of 5 replays), so the host's launch overhead between
-    calls is left out."""
-    side = torch.cuda.Stream()
+def capture(fn, n: int = 1, stream=None):
+    """A CUDA graph of ``n`` calls of ``fn``, captured on ``stream`` (a fresh
+    side stream by default) after one warm-up call there, and the output of
+    the last captured call. An autograd backward whose forward ran on that
+    stream launches there, so it is captured too."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(n):
-            fn()
+            out = fn()
+    return graph, out
+
+
+def graph_launch_ms(fn, n: int = 25, stream=None) -> float:
+    """Device time per call: ``n`` calls captured in one CUDA graph and
+    replayed (median of 5 replays), so the host's launch overhead between
+    calls is left out."""
+    graph, _ = capture(fn, n, stream)
     graph.replay()
     times = []
     for _ in range(5):
@@ -551,6 +591,40 @@ def graph_launch_ms(fn, n: int = 25) -> float:
         times.append(start.elapsed_time(end) / n)
     del graph
     return float(np.median(times))
+
+
+def graph_replays(fn, replays: int = 2) -> list:
+    """Copies of the outputs of one call of ``fn`` captured in a CUDA graph,
+    after each of ``replays`` replays."""
+    graph, out = capture(fn)
+    runs = []
+    for _ in range(replays):
+        graph.replay()
+        torch.cuda.synchronize()
+        runs.append([t.clone() for t in out])
+    del graph
+    return runs
+
+
+def device_kernels(events) -> list:
+    """The device-side events of a ``torch.profiler`` trace, without
+    ``record_function`` ranges (such as ``Optimizer.step``), which the
+    profiler also puts on the device's timeline but which are no kernels."""
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def kernels_per_call(fn) -> list:
+    """The names of the device kernels one call of ``fn`` runs (after a
+    warm-up call), from a ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in device_kernels(prof.events())]
 
 
 def bf16_ulp(ref):
@@ -575,21 +649,31 @@ def ln_case(gen, M, H, dtype):
     return adds, x, gamma, beta, r(1.0).to(dtype)
 
 
-def check_ln_bwd(kernel, case, dtype, got, again, want):
+def check_ln_bwd(kernel, case, dtype, call, plain, rounded=None):
     """One backward kernel's (dx, dgamma, dbeta) against its plain version,
-    each on max|err| / max|ref|, and dgamma/dbeta bitwise equal over two
-    calls."""
+    each on max|err| / max|ref|; dgamma/dbeta bitwise equal over two calls
+    and over two replays of a CUDA graph of one call (the replays also show
+    that the kernel's grid barrier survives replay). ``rounded``: the kernel
+    given gamma already rounded to x's type, whose dx must equal the one
+    from the float32 gamma bit for bit (the kernel rounds gamma itself)."""
+    got = call()
+    again = call()
+    torch.cuda.synchronize()
+    want = plain()
+    replays = graph_replays(call)
     errs = {n: rel_err(g, w) for n, g, w in zip(("dx", "dgamma", "dbeta"), got, want)}
     abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
-    stable = bool(torch.equal(got[1], again[1]) and torch.equal(got[2], again[2]))
+    stable = all(torch.equal(got[k], run[k]) for run in (again, *replays) for k in (1, 2))
+    rounds = None if rounded is None else bool(torch.equal(rounded()[0], got[0]))
     ok = (all(bool(torch.isfinite(g.float()).all()) for g in got) and stable
-          and max(errs.values()) <= BWD_TOL[dtype])
+          and max(errs.values()) <= BWD_TOL[dtype] and rounds is not False)
     emit("ln_kernel_check", kernel=kernel, case=case, dtype=str(dtype).removeprefix("torch."),
          rows=got[0].shape[0], H=got[0].shape[1], rel_err=errs, max_abs_err=abs_err,
-         tol_rel=BWD_TOL[dtype], bitwise_stable=stable, ok=ok)
+         tol_rel=BWD_TOL[dtype], bitwise_stable_calls_and_graph_replays=stable,
+         gamma_rounded_in_kernel=rounds, ok=ok)
     if not ok:
         raise AssertionError(f"{kernel} disagrees with its plain version: {case} {dtype} "
-                             f"{errs}, stable {stable}")
+                             f"{errs}, stable {stable}, rounds gamma {rounds}")
     return abs_err
 
 
@@ -620,21 +704,20 @@ def check_ln_kernels(gen):
                 raise AssertionError(f"embed_layernorm_fwd disagrees: {case} {dtype} {err}")
             errs[("embed_layernorm_fwd", case, dtype)] = err
 
-            got = tel.embed_layernorm_bwd(*adds, gamma, dout, LN_EPS)
-            again = tel.embed_layernorm_bwd(*adds, gamma, dout, LN_EPS)
-            torch.cuda.synchronize()
-            want = tel.embed_layernorm_bwd_plain(*adds, gamma, dout, LN_EPS)
             errs[("embed_layernorm_bwd", case, dtype)] = check_ln_bwd(
-                "embed_layernorm_bwd", case, dtype, got, again, want)
+                "embed_layernorm_bwd", case, dtype,
+                lambda: tel.embed_layernorm_bwd(*adds, gamma, dout, LN_EPS),
+                lambda: tel.embed_layernorm_bwd_plain(*adds, gamma, dout, LN_EPS))
 
-            g = gamma.to(dtype)  # the caller's rounding, as in the JAX VJP
-            got = tln.layernorm_bwd(x, g, dout, LN_EPS)
-            again = tln.layernorm_bwd(x, g, dout, LN_EPS)
-            torch.cuda.synchronize()
-            want = tln.layernorm_bwd_plain(x, g, dout, LN_EPS)
+            # gamma off the bf16 grid: the kernel rounds it, as the JAX VJP does
+            assert dtype == torch.float32 or not torch.equal(gamma.to(dtype).float(), gamma)
             errs[("layernorm_bwd", case, dtype)] = check_ln_bwd(
-                "layernorm_bwd", case, dtype, got, again, want)
-            del adds, x, dout, out, ref, diff, got, again, want
+                "layernorm_bwd", case, dtype,
+                lambda: tln.layernorm_bwd(x, gamma, dout, LN_EPS),
+                lambda: tln.layernorm_bwd_plain(x, gamma, dout, LN_EPS),
+                rounded=None if dtype == torch.float32 else
+                lambda: tln.layernorm_bwd(x, gamma.to(dtype).float(), dout, LN_EPS))
+            del adds, x, dout, out, ref, diff
     torch.cuda.empty_cache()
     return errs
 
@@ -649,14 +732,28 @@ def layer_norm_bwd_call(x, gamma, beta, dout):
     return lambda: torch.autograd.grad(y, args, dout, retain_graph=True)
 
 
+def native_layer_norm_bwd_call(x, gamma, beta, dout):
+    """``aten.native_layer_norm_backward`` called directly (the kernel behind
+    ``F.layer_norm``'s backward: dx, dgamma, dbeta), with the mean and rstd
+    of ``native_layer_norm``, weights in the input's type: one call that a
+    CUDA graph captures."""
+    H = x.shape[1]
+    w, b = gamma.to(x.dtype), beta.to(x.dtype)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [H], w, b, LN_EPS)
+    return lambda: torch.ops.aten.native_layer_norm_backward(dout, x, [H], mean, rstd, w, b,
+                                                             [True, True, True])
+
+
 def time_ln_kernels(gen, card):
     """Kernels 3-5 at their main-path shapes (bf16, H = 768): median of 25
     back-to-back calls from the host (``ms``) and the device time per launch
     from a CUDA graph of 25 (``graph_ms``; at 2,048 rows the host's call
-    takes longer than the kernel), the plain version, one PyTorch library
-    call and the bound
-    (the bytes each input read once and each output written once, over the
-    HBM rate; the flops, ~10-20 an element in float32, are far below it)."""
+    takes longer than the kernel), the device kernels one call runs (from a
+    ``torch.profiler`` trace), the plain version, one PyTorch library call,
+    host-timed (``library_ms``) and from a CUDA graph (``library_graph_ms``),
+    and the bound (the bytes each input read once and each output written
+    once, over the HBM rate; the flops, ~10-20 an element in float32, are
+    far below it)."""
     from recformer_tpu_torch.ops import embed_layernorm as tel
     from recformer_tpu_torch.ops import layernorm as tln
 
@@ -668,42 +765,54 @@ def time_ln_kernels(gen, card):
         adds, x, gamma, beta, dout = ln_case(gen, M, H, dtype)
         n, elt = M * H, 2
         xsum = adds[0] + adds[1] + adds[2] + adds[3]
-        g = gamma.to(dtype)  # kernel 5's caller rounds gamma first
+        g, bt = gamma.to(dtype), beta.to(dtype)
+        layer_norm = lambda: F.layer_norm(xsum, (H,), g, bt, LN_EPS)  # noqa: E731
         timed = {
             "embed_layernorm_fwd": (
                 lambda: tel.embed_layernorm_fwd(*adds, gamma, beta, LN_EPS),
                 lambda: tel.embed_layernorm_plain(*adds, gamma, beta, LN_EPS),
-                lambda: F.layer_norm(xsum, (H,), gamma.to(dtype), beta.to(dtype), LN_EPS),
+                layer_norm, layer_norm,
                 "F.layer_norm on the pre-summed input (leaves out the four-way sum)",
                 5 * n * elt + 2 * H * 4, 10 * n),
             "embed_layernorm_bwd": (
                 lambda: tel.embed_layernorm_bwd(*adds, gamma, dout, LN_EPS),
                 lambda: tel.embed_layernorm_bwd_plain(*adds, gamma, dout, LN_EPS),
                 layer_norm_bwd_call(xsum, gamma, beta, dout),
-                "autograd backward of F.layer_norm on the pre-summed input "
-                "(native_layer_norm_backward; leaves out the sum)",
+                native_layer_norm_bwd_call(xsum, gamma, beta, dout),
+                "backward of F.layer_norm on the pre-summed input (leaves out the sum): "
+                "its autograd call host-timed, aten.native_layer_norm_backward by graph",
                 6 * n * elt + 3 * H * 4, 20 * n),
             "layernorm_bwd": (
-                lambda: tln.layernorm_bwd(x, g, dout, LN_EPS),
-                lambda: tln.layernorm_bwd_plain(x, g, dout, LN_EPS),
+                lambda: tln.layernorm_bwd(x, gamma, dout, LN_EPS),
+                lambda: tln.layernorm_bwd_plain(x, gamma, dout, LN_EPS),
                 layer_norm_bwd_call(x, gamma, beta, dout),
-                "autograd backward of F.layer_norm (native_layer_norm_backward)",
+                native_layer_norm_bwd_call(x, gamma, beta, dout),
+                "backward of F.layer_norm: its autograd call host-timed, "
+                "aten.native_layer_norm_backward by graph",
                 3 * n * elt + 3 * H * 4, 16 * n),
         }
         if case == "encode_chunk":  # the serving forward runs kernel 3 alone
             timed = {"embed_layernorm_fwd": timed["embed_layernorm_fwd"]}
-        for name, (kernel, plain, library, library_call, nbytes, flops) in timed.items():
+        for name, (kernel, plain, library, library_graph, library_call, nbytes,
+                   flops) in timed.items():
+            names = kernels_per_call(kernel)
             kernel_ms = median_launch_ms(kernel)
             device_ms = graph_launch_ms(kernel)
             plain_ms = median_launch_ms(plain, n=10, warmup=1)
             library_ms = median_launch_ms(library)
+            library_graph_ms = graph_launch_ms(library_graph)
             b_ms, b_by = bound(nbytes, flops, torch.float32)
             rows[name][case] = dict(rows=M, H=H, dtype="bfloat16", ms=kernel_ms,
-                                    graph_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+                                    graph_ms=device_ms, device_kernels_per_call=len(names),
+                                    device_kernel_names=[k[:60] for k in names],
+                                    plain_ms=plain_ms, library_ms=library_ms,
+                                    library_graph_ms=library_graph_ms,
                                     library_call=library_call, bound_ms=b_ms, bound_by=b_by,
                                     bytes=nbytes, operations=flops, card=card)
             emit("ln_kernel_time", kernel=name, case=case, **rows[name][case])
-        del adds, x, dout, xsum, timed
+            if len(names) != 1:
+                raise AssertionError(f"{name} ran {len(names)} device kernels a call: {names}")
+        del adds, x, dout, xsum, timed, layer_norm
     torch.cuda.empty_cache()
     return rows
 
@@ -848,6 +957,8 @@ def pretrain_world(cfg, seed, n_items=10_000, batch=8):
 
 
 KERNELS = ("band_attention_fwd", "band_attention_bwd") + LN_KERNELS
+# the LayerNorm kernels' device names (embed_layernorm.cu, layernorm_bwd.cu)
+LN_KERNEL_NAME = re.compile(r"::(embed_ln_fwd|embed_ln_bwd|ln_bwd)_kernel<")
 # the counts a run reads: each kernel's, and the attention kernels' tensor-core
 # launches
 COUNTERS = KERNELS + ("band_attention_fwd_tc", "band_attention_bwd_tc")
@@ -937,10 +1048,18 @@ def run_pretrain_step(seed, card, phase="pretrain_step", baseline=None, **flags)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(m["loss"]) for m in metrics]
     expected = launches_per_step(cfg)
+    # the device kernels of one step (torch.profiler), and among them the
+    # LayerNorm kernels': one device kernel per launch
+    names = kernels_per_call(lambda: step(rng, table, item_ids, seq_lens))
+    ln_names = [m.group(1) for m in map(LN_KERNEL_NAME.search, names) if m]
+    ln_kernels = {k: ln_names.count(k) for k in sorted(set(ln_names))}
+    ln_expected = {k: v for k, v in zip(("embed_ln_fwd", "embed_ln_bwd", "ln_bwd"), (
+        expected["embed_layernorm_fwd"], expected["embed_layernorm_bwd"],
+        expected["layernorm_bwd"])) if v}
     ok = (all(counts[k] == expected[k] * n for k in COUNTERS)
-          and all(math.isfinite(x) for x in losses))
+          and all(math.isfinite(x) for x in losses) and ln_kernels == ln_expected)
     rates = dict(steps_per_s=n / secs, examples_per_s=B * n / secs,
-                 peak_memory_gib=peak / 2 ** 30)
+                 peak_memory_gib=peak / 2 ** 30, device_kernels_per_step=len(names))
     extra = {}
     if baseline is None:
         # what the whole-word MLM (its greedy selection included) costs a step
@@ -954,10 +1073,12 @@ def run_pretrain_step(seed, card, phase="pretrain_step", baseline=None, **flags)
          batch=B, views=[[2 * B, cfg.max_token_num], [2 * B, cfg.item_seq_len]], steps=n,
          seconds=secs, **rates, **extra,
          launches_per_step={k: counts[k] / n for k in COUNTERS}, expected_per_step=expected,
+         layernorm_device_kernels_per_step=ln_kernels,
          loss_first=losses[0], loss_last=losses[-1], card=card, ok=ok)
     if not ok:
         raise AssertionError(f"{phase}: launches {counts} over {n} steps (expected "
-                             f"{expected} each step), losses {losses}")
+                             f"{expected} each step), LayerNorm device kernels a step "
+                             f"{ln_kernels} (expected {ln_expected}), losses {losses}")
 
     # one fixed batch, dropout off: the same generator state each step
     cfg0 = cfg.replace(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)

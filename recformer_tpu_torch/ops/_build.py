@@ -6,15 +6,24 @@ happens at first use, into ``recformer_tpu_torch/_build/`` (listed in
 ``.gitignore``), under a name that carries a hash of the source, the shared
 headers and the flags, so an edit rebuilds. Importing this module looks for
 nothing.
+
+    python3 -m recformer_tpu_torch.ops._build --ptxas [SOURCE.cu ...]
+
+compiles the sources given (by default every kernel source) with
+``-Xptxas -v`` and prints each kernel's registers, shared memory and
+spills, one JSON line per kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
+import tempfile
 from typing import Dict
 
 import torch
@@ -56,7 +65,7 @@ SIGNATURES = {
             _I),
     },
     "embed_layernorm": {
-        "embed_layernorm_bwd_blocks": ([_I], _I),  # M
+        "embed_layernorm_bwd_partial_rows": ([_I, _I], _I),  # dtype H
         "embed_layernorm_fwd": (
             [_I, _P, _P, _P, _P, _P, _P, _P,              # dtype, a b c d, gamma beta, out
              _I, _I, _F, _P],                              # M H eps stream
@@ -67,7 +76,7 @@ SIGNATURES = {
             _I),
     },
     "layernorm_bwd": {
-        "layernorm_bwd_blocks": ([_I], _I),  # M
+        "layernorm_bwd_partial_rows": ([_I, _I], _I),  # dtype H
         "layernorm_bwd": (
             [_I, _P, _P, _P, _P, _P, _P,                  # dtype, x gamma dout dx partial dgb
              _I, _I, _F, _P],                              # M H eps stream
@@ -151,3 +160,41 @@ def load_library(name: str) -> ctypes.CDLL:
             fn.argtypes, fn.restype = argtypes, restype
         _LOADED[name] = lib
     return lib
+
+
+def ptxas_report(source: str) -> list:
+    """Each kernel of ``source`` with the registers, shared memory and
+    spills ``nvcc -Xptxas -v`` reports for it on sm_90a."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = subprocess.run([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                              os.path.join(tmp, "lib.so"), source],
+                             capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source}:\n{out.stderr}")
+    rows, kernel = [], None
+    for line in (out.stdout + out.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = {"kernel": m.group(1)}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and kernel is not None:
+            kernel["spill_stores"], kernel["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel is not None:
+            kernel["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            kernel["static_smem"] = int(smem.group(1)) if smem else 0
+            rows.append(kernel)
+            kernel = None
+    return rows
+
+
+if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser(description="registers, shared memory and spills per kernel")
+    ap.add_argument("--ptxas", action="store_true", required=True)
+    ap.add_argument("sources", nargs="*")
+    for src in ap.parse_args().sources or list(SOURCES.values()):
+        for row in ptxas_report(src):
+            print(json.dumps({"source": os.path.basename(src), **row}), flush=True)

@@ -9,19 +9,26 @@
 // (jnp.mean: sums divided by H), rsqrt(var + eps), x_hat * gamma + beta,
 // written in the addends' type. Backward: recomputes x_hat from the addends
 // and writes the one dx that all four addends share, in their type, and
-// dgamma/dbeta in float32 through the deterministic cross-block reduction of
-// row_reduce.cuh (the TPU kernel accumulates them across its sequential
-// grid instead).
+// dgamma/dbeta in float32, reduced inside the same launch in a fixed order
+// (the TPU kernel accumulates them across its sequential grid instead).
 //
 // Operands, row-major and contiguous, 32-byte aligned:
 //   a, b, c, d, out, dout, dx : (M, H)  float or bf16
-//   gamma, beta               : (H,)    float32
-//   partial                   : (2, partial_blocks(M), H) float32 scratch
+//   gamma, beta               : (H,)    float32 (gamma kept in float32, as
+//                                       _fused_bwd keeps it)
+//   partial                   : (embed_layernorm_bwd_partial_rows(dtype, H), 2H)
+//                               float32 scratch
 //   dgb                       : (2, H)  float32: dgamma, dbeta
 //
 // What bounds them: a few flops per element against 10 (forward) and 12
-// (backward) bytes per element in bf16, so HBM bytes. One warp per row keeps
-// the row in registers: every input is read once, every output written once.
+// (backward) bytes per element in bf16, so HBM bytes. The forward: one warp
+// per row keeps the row in registers, so every input is read once and every
+// output written once. The backward is the LayerNorm backward's design
+// (row_reduce.cuh's ln_bwd_body, one launch): a persistent cooperative grid
+// whose warps keep the next row's four addends and dout in flight in a ring
+// in shared memory (12 warps and 187,392 bytes a block, 127 registers a
+// thread, no spills at <bf16, 768>), gamma staged once a block,
+// dgamma/dbeta through one row of partials a block and a grid barrier.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,10 +45,25 @@ using rowln::Mean;
 // The lane's values of the float32 sum ((a + b) + c) + d of one row.
 template <typename T, int H>
 struct SumOf4 {
+  // the backward's block shape: the four addends' rows staged per row, two
+  // rows in each warp's ring (the next in flight), 12 warps
+  static constexpr int kRows = 4;
+  static constexpr int kStages = 2;
+  static constexpr int kMaxWarps = 12;
   const T* a;
   const T* b;
   const T* c;
   const T* d;
+  // the backward's pieces of a row: the four addends' rows, one after another
+  __device__ __forceinline__ void stage(T* dst, size_t off, int lane) const {
+    rowln::stage_row<T, H>(dst, a + off, lane);
+    rowln::stage_row<T, H>(dst + H, b + off, lane);
+    rowln::stage_row<T, H>(dst + 2 * H, c + off, lane);
+    rowln::stage_row<T, H>(dst + 3 * H, d + off, lane);
+  }
+  __device__ __forceinline__ void read(const T* staged, int lane, float (&x)[H / 32]) const {
+    SumOf4{staged, staged + H, staged + 2 * H, staged + 3 * H}(0, lane, x);
+  }
   __device__ __forceinline__ void operator()(size_t off, int lane, float (&x)[H / 32]) const {
     float t[H / 32];
     load_row<T, H>(a + off, lane, x);
@@ -77,11 +99,14 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 template <typename T, int H>
-__global__ void __launch_bounds__(kWarps * 32, 2)
+using BwdPlan = rowln::BwdPlan<T, H, SumOf4<T, H>>;
+
+template <typename T, int H>
+__global__ void __launch_bounds__(BwdPlan<T, H>::kThreads, 1)
     embed_ln_bwd_kernel(SumOf4<T, H> sum, const float* __restrict__ gamma,
                         const T* __restrict__ dout, T* __restrict__ dx,
-                        float* __restrict__ partial, int M, float eps) {
-  rowln::ln_bwd_rows<T, H, Mean::kDivide>(sum, gamma, dout, dx, partial, M, eps);
+                        float* __restrict__ partial, float* __restrict__ dgb, int M, float eps) {
+  rowln::ln_bwd_body<T, H, Mean::kDivide, false>(sum, gamma, dout, dx, partial, dgb, M, eps);
 }
 
 template <typename T, int H>
@@ -95,17 +120,19 @@ cudaError_t fwd(const void* a, const void* b, const void* c, const void* d, cons
 }
 
 template <typename T, int H>
+int bwd_rows() {
+  return rowln::bwd_partial_rows<BwdPlan<T, H>, embed_ln_bwd_kernel<T, H>>();
+}
+
+template <typename T, int H>
 cudaError_t bwd(const void* a, const void* b, const void* c, const void* d, const float* gamma,
                 const void* dout, void* dx, float* partial, float* dgb, int M, float eps,
                 cudaStream_t stream) {
   const SumOf4<T, H> sum{static_cast<const T*>(a), static_cast<const T*>(b),
                          static_cast<const T*>(c), static_cast<const T*>(d)};
-  const int n_blocks = rowln::partial_blocks(M);
-  embed_ln_bwd_kernel<T, H><<<n_blocks, kWarps * 32, 0, stream>>>(
-      sum, gamma, static_cast<const T*>(dout), static_cast<T*>(dx), partial, M, eps);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return rowln::reduce_partials(partial, dgb, n_blocks, H, stream);
+  return rowln::launch_bwd<BwdPlan<T, H>, embed_ln_bwd_kernel<T, H>>(
+      stream, sum, gamma, static_cast<const T*>(dout), static_cast<T*>(dx), partial, dgb, M,
+      eps);
 }
 
 template <typename T>
@@ -121,6 +148,19 @@ cudaError_t fwd_width(int H, const void* a, const void* b, const void* c, const 
       return cudaErrorInvalidValue;
   }
 #undef EMBED_FWD_CASE
+}
+
+template <typename T>
+int bwd_rows_width(int H) {
+#define EMBED_ROWS_CASE(W) \
+  case W:                  \
+    return bwd_rows<T, W>();
+  switch (H) {
+    ROWLN_WIDTHS(EMBED_ROWS_CASE)
+    default:
+      return -(int)cudaErrorInvalidValue;
+  }
+#undef EMBED_ROWS_CASE
 }
 
 template <typename T>
@@ -140,10 +180,15 @@ cudaError_t bwd_width(int H, const void* a, const void* b, const void* c, const 
 
 }  // namespace
 
-// Rows of partials the backward writes for M rows (the caller sizes them).
-extern "C" int embed_layernorm_bwd_blocks(int M) { return rowln::partial_blocks(M); }
+// Rows of block partials a backward over rows of H writes (the caller
+// sizes the scratch from it); negative: minus a cudaError_t.
+extern "C" int embed_layernorm_bwd_partial_rows(int dtype, int H) {
+  if (dtype == 0) return bwd_rows_width<float>(H);
+  if (dtype == 1) return bwd_rows_width<__nv_bfloat16>(H);
+  return -(int)cudaErrorInvalidValue;
+}
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t, or 0.
+// dtype: 0 = float32, 1 = bfloat16. Each returns its launch's cudaError_t, or 0.
 extern "C" int embed_layernorm_fwd(int dtype, const void* a, const void* b, const void* c,
                                    const void* d, const void* gamma, const void* beta,
                                    void* out, int M, int H, float eps, void* stream) {

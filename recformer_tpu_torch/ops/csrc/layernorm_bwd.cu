@@ -3,25 +3,33 @@
 // PyTorch version, layernorm_bwd_plain, and the forward, plain PyTorch as in
 // the JAX package).
 //
-// Replaces recformer_tpu/ops/pallas_layernorm.py::_ln_bwd_kernel: dx, dgamma
-// and dbeta in one pass over the rows with the float32 statistics recomputed
-// (sums scaled by 1/H, as the TPU kernel does),
+// Replaces recformer_tpu/ops/pallas_layernorm.py::_ln_bwd_kernel (with the
+// rounding of _pln_bwd, :104-126): dx, dgamma and dbeta in one launch over
+// the rows, with the float32 statistics recomputed (sums scaled by 1/H, as
+// the TPU kernel does),
 //   m1 = mean(dy*g), m2 = mean(dy*g*x_hat), dx = rstd*((dy*g - m1) - x_hat*m2),
-// dx written in the input type; dgamma = sum(dy*x_hat) and dbeta = sum(dy)
-// over all rows, through the deterministic cross-block reduction of
-// row_reduce.cuh (the TPU kernel accumulates them across its sequential grid
-// instead).
+// dx written in the input type, g = gamma rounded to the input type inside
+// the kernel (__float2bfloat16_rn: the bits of weight.to(bf16)); dgamma =
+// sum(dy*x_hat) and dbeta = sum(dy) over all rows in float32, reduced inside
+// the same launch in a fixed order (the TPU kernel accumulates them across
+// its sequential grid instead).
+//
+// What bounds it: a few flops per element against 6 bytes per element in
+// bf16 (x and dout read, dx written), so HBM bytes. The design is
+// row_reduce.cuh's ln_bwd_body: a persistent cooperative grid, one block of
+// 8 warps an SM; each warp keeps its next row's x and dout in flight
+// (cp.async into a ring in shared memory) while it reduces and stores the
+// current one; gamma staged once a block; dgamma/dbeta through the warps,
+// one row of partials a block and a grid barrier, no second launch and no
+// atomic on a sum. The wrapper casts nothing: one call is one device
+// kernel. At <bf16, 768> a block takes 52,224 bytes of shared memory and
+// a thread 145 registers, with no spills (nvcc -Xptxas -v for sm_90a).
 //
 // Operands, row-major and contiguous, 32-byte aligned:
 //   x, dout, dx : (M, H) float or bf16
-//   gamma       : (H,)   float32, holding values of x's type (the caller
-//                        rounds gamma to it, as the JAX VJP does)
-//   partial     : (2, partial_blocks(M), H) float32 scratch
+//   gamma       : (H,)   float32, the parameter as it is
+//   partial     : (layernorm_bwd_partial_rows(dtype, H), 2H) float32 scratch
 //   dgb         : (2, H) float32: dgamma, dbeta
-//
-// What bounds it: a few flops per element against 6 bytes per element in
-// bf16 (x and dout read, dx written), so HBM bytes. One warp per row keeps
-// the row in registers, so x and dout are read once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -31,34 +39,58 @@
 
 namespace {
 
-using rowln::kWarps;
 using rowln::Mean;
 
+// The forward's input of a row is one row of x.
 template <typename T, int H>
 struct RowOf {
+  static constexpr int kRows = 1;      // rows of T staged per row
+  static constexpr int kStages = 2;    // rows in each warp's ring: the next is in flight
+  static constexpr int kMaxWarps = 8;  // warps of a block
   const T* x;
-  __device__ __forceinline__ void operator()(size_t off, int lane, float (&v)[H / 32]) const {
-    rowln::load_row<T, H>(x + off, lane, v);
+  __device__ __forceinline__ void stage(T* dst, size_t off, int lane) const {
+    rowln::stage_row<T, H>(dst, x + off, lane);
+  }
+  __device__ __forceinline__ void read(const T* staged, int lane, float (&v)[H / 32]) const {
+    rowln::load_row<T, H>(staged, lane, v);
   }
 };
 
 template <typename T, int H>
-__global__ void __launch_bounds__(kWarps * 32, 2)
+using Plan = rowln::BwdPlan<T, H, RowOf<T, H>>;
+
+template <typename T, int H>
+__global__ void __launch_bounds__(Plan<T, H>::kThreads, 1)
     ln_bwd_kernel(RowOf<T, H> x, const float* __restrict__ gamma, const T* __restrict__ dout,
-                  T* __restrict__ dx, float* __restrict__ partial, int M, float eps) {
-  rowln::ln_bwd_rows<T, H, Mean::kScale>(x, gamma, dout, dx, partial, M, eps);
+                  T* __restrict__ dx, float* __restrict__ partial, float* __restrict__ dgb,
+                  int M, float eps) {
+  rowln::ln_bwd_body<T, H, Mean::kScale, true>(x, gamma, dout, dx, partial, dgb, M, eps);
+}
+
+template <typename T, int H>
+int partial_rows() {
+  return rowln::bwd_partial_rows<Plan<T, H>, ln_bwd_kernel<T, H>>();
 }
 
 template <typename T, int H>
 cudaError_t bwd(const void* x, const float* gamma, const void* dout, void* dx, float* partial,
                 float* dgb, int M, float eps, cudaStream_t stream) {
-  const int n_blocks = rowln::partial_blocks(M);
-  ln_bwd_kernel<T, H><<<n_blocks, kWarps * 32, 0, stream>>>(
-      RowOf<T, H>{static_cast<const T*>(x)}, gamma, static_cast<const T*>(dout),
-      static_cast<T*>(dx), partial, M, eps);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return rowln::reduce_partials(partial, dgb, n_blocks, H, stream);
+  return rowln::launch_bwd<Plan<T, H>, ln_bwd_kernel<T, H>>(
+      stream, RowOf<T, H>{static_cast<const T*>(x)}, gamma, static_cast<const T*>(dout),
+      static_cast<T*>(dx), partial, dgb, M, eps);
+}
+
+template <typename T>
+int rows_width(int H) {
+#define LN_ROWS_CASE(W) \
+  case W:               \
+    return partial_rows<T, W>();
+  switch (H) {
+    ROWLN_WIDTHS(LN_ROWS_CASE)
+    default:
+      return -(int)cudaErrorInvalidValue;
+  }
+#undef LN_ROWS_CASE
 }
 
 template <typename T>
@@ -77,11 +109,15 @@ cudaError_t bwd_width(int H, const void* x, const float* gamma, const void* dout
 
 }  // namespace
 
-// Rows of partials the kernel writes for M rows (the caller sizes them).
-extern "C" int layernorm_bwd_blocks(int M) { return rowln::partial_blocks(M); }
+// Rows of block partials a launch over rows of H writes (the caller sizes
+// the scratch from it); negative: minus a cudaError_t.
+extern "C" int layernorm_bwd_partial_rows(int dtype, int H) {
+  if (dtype == 0) return rows_width<float>(H);
+  if (dtype == 1) return rows_width<__nv_bfloat16>(H);
+  return -(int)cudaErrorInvalidValue;
+}
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the first failing launch's
-// cudaError_t, or 0.
+// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t, or 0.
 extern "C" int layernorm_bwd(int dtype, const void* x, const void* gamma, const void* dout,
                              void* dx, void* partial, void* dgb, int M, int H, float eps,
                              void* stream) {

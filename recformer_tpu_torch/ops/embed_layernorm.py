@@ -14,10 +14,10 @@ Counterpart of ``recformer_tpu/ops/pallas_embed.py``, selected by
   ``_fused_bwd``, dgamma/dbeta return in gamma's type. dout is read in its
   own type and widened in registers (JAX casts it to float32 first, which
   gives the same values). The TPU kernel sums dgamma/dbeta across its
-  sequential grid; here each block writes a row of float32 partials and a
-  second pass sums them in a fixed order (no atomics: bitwise the same from
-  run to run), the code ``csrc/row_reduce.cuh`` shares with the LayerNorm
-  backward.
+  sequential grid; here the kernel sums them inside the same launch in an
+  order fixed by the grid alone (bitwise the same from run to run, one
+  device kernel a call), the code ``csrc/row_reduce.cuh`` shares with the
+  LayerNorm backward.
 
 Like the JAX VJP, the autograd function saves the four addends (and gamma);
 they are freed with the graph. Unlike the TPU wrapper, any number of rows
@@ -27,7 +27,9 @@ On CPU tensors the plain versions run (:func:`embed_layernorm_plain`,
 :func:`embed_layernorm_bwd_plain`); on CUDA tensors the kernels launch or
 raise. What bounds them on the H100: a few flops per element against 10
 (forward) and 12 (backward) bytes per element in bf16, so HBM bytes; one
-warp per row keeps the row in registers, so every input is read once.
+warp per row keeps the row in registers, so every input is read once, and
+the backward's warps keep their next row in flight while they reduce the
+current one.
 ``PERF.md`` has their times beside the bound.
 """
 
@@ -130,10 +132,13 @@ def _launch_bwd(a, b, c, d, gamma, dout, eps):
     lib = load_library("embed_layernorm")
     f32 = dict(dtype=torch.float32, device=a.device)
     dx = torch.empty_like(a)
-    partial = torch.empty((2, lib.embed_layernorm_bwd_blocks(M), H), **f32)
     dgb = torch.empty((2, H), **f32)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
+        rows = lib.embed_layernorm_bwd_partial_rows(DTYPE_CODES[a.dtype], H)
+        if rows <= 0:
+            raise RuntimeError(f"embed_layernorm_bwd cannot be sized: CUDA error {-rows}")
+        partial = torch.empty((rows, 2 * H), **f32)
         err = lib.embed_layernorm_bwd(DTYPE_CODES[a.dtype], ptr(a), ptr(b), ptr(c), ptr(d),
                                       ptr(gamma), ptr(dout), ptr(dx), ptr(partial), ptr(dgb),
                                       M, H, ctypes.c_float(eps), ctypes.c_void_p(stream))

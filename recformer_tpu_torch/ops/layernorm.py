@@ -8,13 +8,15 @@ Counterpart of ``recformer_tpu/ops/pallas_layernorm.py``, selected by
   :func:`ln_forward_math` (``_ln_forward_math``: float32 statistics with the
   two-pass variance, output in the input's type). The backward is
   ``csrc/layernorm_bwd.cu``, which replaces ``_ln_bwd_kernel``: dx, dgamma
-  and dbeta in one pass over the rows with the statistics recomputed. As in
-  ``_pln_bwd``, gamma and dout are rounded to the input's type first, dx is
-  returned in that type and dgamma/dbeta, accumulated in float32, in
-  gamma's. The TPU kernel sums dgamma/dbeta across its sequential grid; on
-  the card blocks run in any order, so each block writes a row of float32
-  partials and a second pass sums them in a fixed order (no atomics: bitwise
-  the same from run to run).
+  and dbeta in one launch over the rows with the statistics recomputed. As
+  in ``_pln_bwd``, gamma and dout are rounded to the input's type first (the
+  kernel rounds the float32 parameter itself, so the wrapper casts
+  nothing), dx is returned in that type and dgamma/dbeta, accumulated in
+  float32, in gamma's. The TPU kernel sums dgamma/dbeta across its
+  sequential grid; on the card blocks run in any order, so the kernel sums
+  them inside the same launch in an order fixed by the grid alone (a
+  block's warps, then the blocks' rows of partials after a grid barrier):
+  bitwise the same from run to run, and one call is one device kernel.
 - ``'split_bwd'``: :func:`split_layernorm`, plain PyTorch with
   ``_sln_bwd``'s formula (gamma kept in float32). It has no kernel: the JAX
   version has none.
@@ -22,8 +24,8 @@ Counterpart of ``recformer_tpu/ops/pallas_layernorm.py``, selected by
 On CPU tensors the backward takes :func:`layernorm_bwd_plain`; on CUDA
 tensors it launches the kernel or raises. What bounds the kernel on the
 H100: a few flops per element against 6 bytes per element in bf16, so HBM
-bytes; one warp per row keeps the row in registers so that x and dout are
-read once. ``PERF.md`` has its time beside the bound.
+bytes; a persistent grid whose warps keep their next row in flight while
+they reduce the current one. ``PERF.md`` has its time beside the bound.
 """
 
 from __future__ import annotations
@@ -56,8 +58,10 @@ def ln_forward_math(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 def layernorm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor, dout: torch.Tensor, eps: float):
     """Plain PyTorch version of the backward kernel over ``(M, H)`` rows, in
-    its rounding order (sums scaled by ``1/H``). Returns dx in ``x``'s type
-    and float32 (dgamma, dbeta)."""
+    its rounding order (sums scaled by ``1/H``), gamma rounded to ``x``'s
+    type first as the kernel rounds it. Returns dx in ``x``'s type and
+    float32 (dgamma, dbeta)."""
+    gamma = gamma.to(x.dtype)
     x32 = x.float()
     dy = dout.float()
     inv_h = 1.0 / x.shape[-1]
@@ -85,6 +89,8 @@ def _check(x, gamma, dout):
     if dout.shape != x.shape or dout.dtype != x.dtype or gamma.shape != x.shape[1:]:
         raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} and gamma "
                          f"{tuple(gamma.shape)} must match x {tuple(x.shape)} {x.dtype}")
+    if gamma.dtype != torch.float32:
+        raise TypeError(f"layernorm_bwd takes the float32 parameter gamma, got {gamma.dtype}")
     if dout.device != x.device or gamma.device != x.device:
         raise ValueError("layernorm_bwd inputs must share one CUDA device")
 
@@ -95,15 +101,17 @@ def _launch_bwd(x, gamma, dout, eps):
 
     _check(x, gamma, dout)
     M, H = x.shape
-    x, dout = aligned(x), aligned(dout)
-    gamma = aligned(gamma.float())
+    x, dout, gamma = aligned(x), aligned(dout), aligned(gamma)
     lib = load_library("layernorm_bwd")
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    partial = torch.empty((2, lib.layernorm_bwd_blocks(M), H), **f32)
     dgb = torch.empty((2, H), **f32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
+        rows = lib.layernorm_bwd_partial_rows(DTYPE_CODES[x.dtype], H)
+        if rows <= 0:
+            raise RuntimeError(f"layernorm_bwd cannot be sized: CUDA error {-rows}")
+        partial = torch.empty((rows, 2 * H), **f32)
         err = lib.layernorm_bwd(DTYPE_CODES[x.dtype], ptr(x), ptr(gamma), ptr(dout), ptr(dx),
                                 ptr(partial), ptr(dgb), M, H, ctypes.c_float(eps),
                                 ctypes.c_void_p(stream))
@@ -115,9 +123,9 @@ def _launch_bwd(x, gamma, dout, eps):
 
 def layernorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dout: torch.Tensor, eps: float):
     """The backward kernel's wrapper over ``(M, H)`` rows: x and dout of one
-    type, gamma holding values of that type. Returns dx in ``x``'s type and
-    float32 (dgamma, dbeta). CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    type, gamma the float32 parameter (rounded to x's type inside). Returns
+    dx in ``x``'s type and float32 (dgamma, dbeta). CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise."""
     if x.is_cuda:
         return _launch_bwd(x, gamma, dout, eps)
     if x.device.type != "cpu":
@@ -139,7 +147,7 @@ class _FusedBwdLayerNorm(torch.autograd.Function):
     def backward(ctx, dout):
         x, weight = ctx.saved_tensors
         H = x.shape[-1]
-        dx, dgamma, dbeta = layernorm_bwd(x.reshape(-1, H), weight.to(x.dtype),
+        dx, dgamma, dbeta = layernorm_bwd(x.reshape(-1, H), weight.float(),
                                           dout.reshape(-1, H).to(x.dtype), ctx.eps)
         return dx.view(x.shape), dgamma.to(weight.dtype), dbeta.to(weight.dtype), None
 

@@ -32,7 +32,7 @@ from profile_torch_serving import profile  # noqa: E402  (this script's director
 GROUPS = (
     ("attention_bwd", ("band_bwd",)),
     ("attention_fwd", ("band_attention_fwd",)),
-    ("layernorm_kernels", ("embed_ln_", "ln_bwd_kernel", "reduce_partials")),
+    ("layernorm_kernels", ("embed_ln_fwd_kernel", "ln_bwd_kernel")),  # embed_ln_bwd too
     ("gemm", ("nvjet", "gemm", "xmma", "cutlass")),
     ("optimizer", ("multi_tensor_apply", "foreach", "adam")),
 )

@@ -27,15 +27,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import synthetic_table  # noqa: E402
-
-
-def device_kernels(events):
-    """The device-side events, without ``record_function`` ranges (such as
-    ``Optimizer.step``), which the profiler also puts on the device's
-    timeline but which are no kernels."""
-    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
+from chip_smoke import device_kernels, synthetic_table  # noqa: E402
 
 
 def busy_ms(kernels) -> float:

@@ -200,6 +200,80 @@ def test_layernorm_bwd_plain_matches_autograd_of_the_forward(shape):
                                    **GRAD_TOL)
 
 
+def _bwd_with_gamma_rounded_by_the_caller(x, gamma_t, dout, eps):
+    """The backward's plain arithmetic under the contract in which the
+    caller hands over gamma already rounded to x's type (``gamma_t``) and the
+    function widens it: the rounding order the kernel keeps."""
+    x32, dy = x.float(), dout.float()
+    inv_h = 1.0 / x.shape[-1]
+    mu = x32.sum(-1, keepdim=True) * inv_h
+    xc = x32 - mu
+    var = (xc * xc).sum(-1, keepdim=True) * inv_h
+    rstd = torch.rsqrt(var + eps)
+    xhat = xc * rstd
+    dyg = dy * gamma_t.float()
+    m1 = dyg.sum(-1, keepdim=True) * inv_h
+    m2 = (dyg * xhat).sum(-1, keepdim=True) * inv_h
+    dx = rstd * (dyg - m1 - xhat * m2)
+    return dx.to(x.dtype), (dy * xhat).sum(0), dy.sum(0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layernorm_bwd_plain_rounds_float32_gamma_itself(dtype):
+    """Given the float32 parameter, the plain backward rounds gamma to x's
+    type itself (as the kernel does) and returns, bit for bit, what the
+    backward gives when the caller rounds gamma first. In bf16 the gamma is
+    chosen off the bf16 grid, so that a backward which skipped the rounding
+    would differ."""
+    rng = np.random.default_rng(11)
+    M, H = 203, 768
+    x = torch.from_numpy((rng.standard_normal((M, H)) * 2.0).astype(np.float32)).to(dtype)
+    dout = torch.from_numpy(rng.standard_normal((M, H)).astype(np.float32)).to(dtype)
+    gamma = torch.from_numpy((1.0 + 0.1 * rng.standard_normal(H)).astype(np.float32))
+    got = tln.layernorm_bwd_plain(x, gamma, dout, EPS)
+    want = _bwd_with_gamma_rounded_by_the_caller(x, gamma.to(dtype), dout, EPS)
+    for name, g, w in zip(("dx", "dgamma", "dbeta"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    if dtype == torch.bfloat16:
+        assert not torch.equal(gamma.to(dtype).float(), gamma)
+        unrounded = _bwd_with_gamma_rounded_by_the_caller(x, gamma, dout, EPS)
+        assert not torch.equal(unrounded[0], got[0])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H", [64, 768])
+@pytest.mark.parametrize("M", [1, 37, 8 * 25 + 3])
+def test_layernorm_bwd_plain_matches_jax_at_ragged_rows(M, H, dtype):
+    """The plain backward, given the float32 gamma, against ``jax.vjp`` of
+    ``pallas_layernorm`` (Pallas backward in interpret mode) at row counts
+    that a persistent grid's edges meet: one row, a prime, a multiple of 8
+    plus 3. float32: each output within 1e-5 (rtol and atol). bf16: dx
+    within one bf16 ulp of the largest |dx|, dgamma/dbeta within 1e-4 of
+    their largest value (float32 sums in another order)."""
+    rng = np.random.default_rng(12)
+    x = (rng.standard_normal((M, H)) * 2.0).astype(np.float32)
+    dy = rng.standard_normal((M, H)).astype(np.float32)
+    gamma, beta = ln_params(rng, H, spread=0.1)
+    if dtype == "bfloat16":
+        x, dy = as_bf16_np(x), as_bf16_np(dy)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    _, vjp = jax.vjp(jax_ln("pallas_bwd"), jnp.asarray(x).astype(jdt), jnp.asarray(gamma),
+                     jnp.asarray(beta))
+    want = [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(dy).astype(jdt))]
+    got = tln.layernorm_bwd_plain(torch.from_numpy(x).to(tdt), torch.from_numpy(gamma),
+                                  torch.from_numpy(dy).to(tdt), EPS)
+    assert got[0].dtype == tdt and got[1].dtype == got[2].dtype == torch.float32
+    got = [g.float().numpy() for g in got]
+    if dtype == "float32":
+        for name, g, w in zip(("dx", "dgamma", "dbeta"), got, want):
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5, err_msg=name)
+        return
+    dx_err = np.abs(got[0] - want[0]).max()
+    assert dx_err <= bf16_ulp(np.abs(want[0]).max()), dx_err
+    for name, g, w in (("dgamma", got[1], want[1]), ("dbeta", got[2], want[2])):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4 * np.abs(w).max(), err_msg=name)
+
+
 # ---------------------------------------------------------------------------
 # the fused embedding LayerNorm against JAX's
 # ---------------------------------------------------------------------------

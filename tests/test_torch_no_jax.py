@@ -43,7 +43,8 @@ def test_sources_name_no_jax():
     sources = [os.path.join(d, f) for d, _, fs in os.walk(PKG_DIR) for f in fs
                if f.endswith((".py", ".cu", ".cuh")) and "_build" not in d.split(os.sep)]
     sources += [os.path.join(REPO, p) for p in (
-        "chip_smoke.py", "scripts/profile_torch_serving.py", "scripts/profile_torch_pretrain.py")]
+        "chip_smoke.py", "scripts/profile_torch_serving.py", "scripts/profile_torch_pretrain.py",
+        "scripts/profile_torch_ln_bwd.py")]
     assert len(sources) > 20
     names = {os.path.basename(p) for p in sources}
     assert {"embed_layernorm.cu", "layernorm_bwd.cu", "row_reduce.cuh", "layernorm.py",
