@@ -41,11 +41,26 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    versions, ``F.layer_norm`` (forward, or its backward: host-timed through
    autograd and by graph through ``aten.native_layer_norm_backward``) and
    the bound, with the device kernels one call runs (one each);
+7b. probe_check: the two probe kernels of ``ops/band_probes.py`` (TPU
+   kernels 6 and 7: kernel 1's band forward with parts removed, five
+   variants; the band products per head and per head pair) against their
+   plain versions, bf16, max|err| / max|ref| <= 1e-2, at the probes'
+   defaults (B 16, L 1024, H 12, D 64, W 64) at block_q 256, 128 and 16,
+   with keyloc zero runs and invalid globals, and at irregular edges;
+7c. probe_time: the probes' entry points (``python -m
+   recformer_tpu_torch.benchmarks.kernel_ablation`` / ``.headpair_probe``)
+   at block_q 256 and 16, each variant's CUDA-graph and host time beside
+   kernel 1's graph time on the same inputs, the plain versions and the
+   bound; the launches of this phase are the probe kernels' (their path);
 8. serving: Recformer-base (random weights from ``--seed``) encodes a
    synthetic 10,000-item catalog, ranks it for 256 users, and the serve CLI
    answers a few users;
 9. encode_embed_kernel: 2,048 items encoded under ``embed_ln_impl='pallas'``,
    pooled cosine against the default path > 0.999;
+9b. offline_clis: ``cli.encode_items`` (512 items) and ``cli.evaluate_seq``
+   (64 users, a fresh catalog, then encode_items' saved catalog: the same
+   metrics) at base width under ``--embed_ln_impl pallas``, launches of
+   kernels 1 and 3 as the code says;
 10. pretrain_step: 20 base-width pretraining steps at batch 8 (two views,
     fused clean+MLM towers, dropout 0.1, AdamW), steps/s, the whole-word
     MLM's time, peak memory, the device kernels of one step
@@ -64,7 +79,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     and last saved), then again with ``--ln_impl pallas_bwd``.
 
 Launch counts, set to 0 just before each path and read just after, show that
-the paths ran the kernels, as many times as the code says they must (the
+the paths ran the kernels (each kernel on its path at least once; the
+probes' path is probe_time), as many times as the code says they must (the
 attention kernels' tensor-core launches among them: every forward of
 serving, and all 24 forwards and 24 backwards of a bf16 step). Then
 the kernels line, the card line and, last, the result line. Without CUDA, or
@@ -79,13 +95,14 @@ import json
 import math
 import os
 import re
-import subprocess
 import sys
 import tempfile
 import time
 
 import numpy as np
 import torch
+
+from recformer_tpu_torch.utils.timing import capture, card_line, graph_launch_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / fp32 core
@@ -97,12 +114,6 @@ BASE_SHAPES = {"item_tower": (256, 128), "sequence_tower": (16, 1024)}  # (B, L)
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], check=True, capture_output=True, text=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def synthetic_table(cfg, n_items: int, seed: int):
@@ -558,41 +569,6 @@ LN_SHAPES = {"sequence_tower": (16384, 768), "item_tower": (2048, 768),
 LN_KERNELS = ("embed_layernorm_fwd", "embed_layernorm_bwd", "layernorm_bwd")
 
 
-def capture(fn, n: int = 1, stream=None):
-    """A CUDA graph of ``n`` calls of ``fn``, captured on ``stream`` (a fresh
-    side stream by default) after one warm-up call there, and the output of
-    the last captured call. An autograd backward whose forward ran on that
-    stream launches there, so it is captured too."""
-    side = stream or torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        for _ in range(n):
-            out = fn()
-    return graph, out
-
-
-def graph_launch_ms(fn, n: int = 25, stream=None) -> float:
-    """Device time per call: ``n`` calls captured in one CUDA graph and
-    replayed (median of 5 replays), so the host's launch overhead between
-    calls is left out."""
-    graph, _ = capture(fn, n, stream)
-    graph.replay()
-    times = []
-    for _ in range(5):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / n)
-    del graph
-    return float(np.median(times))
-
-
 def graph_replays(fn, replays: int = 2) -> list:
     """Copies of the outputs of one call of ``fn`` captured in a CUDA graph,
     after each of ``replays`` replays."""
@@ -818,6 +794,170 @@ def time_ln_kernels(gen, card):
 
 
 # ---------------------------------------------------------------------------
+# the two probe kernels (TPU kernels 6 and 7): checks and times
+# ---------------------------------------------------------------------------
+
+PROBE_TOL = 1e-2  # max|out - ref| / max|ref|, bf16, every variant; no_softmax's
+#                   outputs are of order 1e31 (the -1e30 mask through P.V), so relative only
+PROBE_BLOCKS = (256, 128, 16)  # the JAX default, a tile of the card's blocks, kernel 1's warp tile
+PROBE_TIME_BLOCKS = (256, 16)
+
+
+def probe_inputs(seed, B, L, H, W, G, zero_runs=(), invalid_globals=()):
+    """The ablation probe's inputs (``kernel_ablation.make_inputs``) with
+    ``keyloc`` 0 over the (batch, start, length) runs of ``zero_runs`` and
+    ``gvalid`` 0 at the (batch, global) pairs of ``invalid_globals``."""
+    from recformer_tpu_torch.benchmarks import kernel_ablation as ka
+
+    ins = ka.make_inputs(seed, "cuda", B=B, L=L, H=H, W=W, G=G)
+    for b, start, n in zero_runs:
+        ins["keyloc"][b, W // 2 + start:W // 2 + start + n] = 0
+    for b, g in invalid_globals:
+        ins["gvalid"][b, 0, g] = 0
+    return ins
+
+
+def check_probes():
+    """Both probe kernels against their plain versions on the card, bf16:
+    every ablation variant and both head-pair forms at the probes' defaults
+    (B 16, L 1024, H 12, D 64, W 64, G 1) at block_q 256, 128 and 16; then
+    keyloc with zero runs inside the sequence (one of 80 rows, so some rows
+    see no valid key) and invalid globals (a whole batch row's, so those
+    rows have nothing valid at all); then the edges: L = 1008 at block_q 48
+    (irregular bands, a block of 7 warps), 8 globals, W = 32, and for the
+    head pair L = 64 < block_q + W (one band, offsets 0) and L = 208."""
+    from recformer_tpu_torch.benchmarks import headpair_probe as hp
+    from recformer_tpu_torch.ops import band_probes as bp
+
+    cases = [("defaults", dict(B=16, L=1024, H=12, W=64, G=1), PROBE_BLOCKS),
+             ("zero_keys_invalid_globals",
+              dict(B=4, L=1024, H=12, W=64, G=2, zero_runs=((0, 100, 5), (1, 300, 80), (2, 0, 40)),
+                   invalid_globals=((1, 0), (1, 1), (3, 1))), PROBE_BLOCKS),
+             ("L1008_G8", dict(B=2, L=1008, H=4, W=64, G=8, zero_runs=((0, 500, 70),),
+                               invalid_globals=((0, 3), (1, 7))), (48, 16, 112)),
+             ("W32", dict(B=2, L=512, H=4, W=32, G=1), (256, 16))]
+    errs = {}
+    for case, kw, blocks in cases:
+        ins = probe_inputs(7, **kw)
+        for bq in blocks:
+            for v in bp.ABLATION_VARIANTS:
+                args = dict(variant=v, block_q=bq, window=kw["W"], num_heads=kw["H"])
+                with torch.no_grad():
+                    out = bp.band_ablation(**ins, **args)
+                    ref = bp.band_ablation_plain(**ins, **args)
+                torch.cuda.synchronize()
+                err = rel_err(out, ref)
+                ok = (out.dtype == torch.bfloat16 and out.shape == ins["q"].shape
+                      and bool(torch.isfinite(ref).all()) and err <= PROBE_TOL)
+                errs[("band_ablation", case, v, bq)] = (err, float((out.float() - ref.float())
+                                                               .abs().max()))
+                emit("probe_check", kernel="band_ablation", case=case, variant=v, block_q=bq,
+                     rel_err=err, ok=ok)
+                if not ok:
+                    raise AssertionError(f"band_ablation {case} {v} block_q {bq}: rel_err {err}")
+    hp_cases = [("defaults", dict(B=16, L=1024, P=6, W=64), PROBE_BLOCKS),
+                ("L1008", dict(B=2, L=1008, P=2, W=64), (48, 16)),
+                ("L64", dict(B=2, L=64, P=2, W=64), (16, 64)),
+                ("L208_W32", dict(B=2, L=208, P=2, W=32), (16, 208))]
+    for case, kw, blocks in hp_cases:
+        q, k, v_ = hp.make_inputs(9, "cuda", B=kw["B"], L=kw["L"], P=kw["P"])
+        for bq in blocks:
+            ref = bp.band_headpair_plain(q, k, v_, variant="pair", block_q=bq, window=kw["W"])
+            for v in bp.HEADPAIR_VARIANTS:
+                with torch.no_grad():
+                    out = bp.band_headpair(q, k, v_, variant=v, block_q=bq, window=kw["W"])
+                torch.cuda.synchronize()
+                err = rel_err(out, ref)
+                ok = out.shape == q.shape and err <= PROBE_TOL
+                errs[("band_headpair", case, v, bq)] = (err, float((out.float() - ref.float())
+                                                               .abs().max()))
+                emit("probe_check", kernel="band_headpair", case=case, variant=v, block_q=bq,
+                     rel_err=err, ok=ok)
+                if not ok:
+                    raise AssertionError(f"band_headpair {case} {v} block_q {bq}: rel_err {err}")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def probe_bound(kernel, variant, block_q, B, L, H, W, G, D=64):
+    """(bound ms, bound by, bytes, operations) of one probe call in bf16: the
+    inputs the variant reads once and its output written once, over the
+    card's memory rate; 4*D flops per (query, band key) pair and head (the
+    global scores' 2*D per global key for ``full``; ``pair``'s zeros are
+    not useful work), over the bf16 tensor-core peak."""
+    elt = 2
+    if kernel == "band_ablation":
+        band = block_q + W
+        nbytes = 2 * B * L * H * D * elt + 2 * B * (L + W) * H * D * elt
+        ops = 4 * B * H * L * band * D
+        if variant in ("no_softmax", "band_softmax", "full"):
+            nbytes += B * (L + W) * 4
+        if variant == "full":
+            nbytes += B * G * H * D * elt + B * G * 4
+            ops += 2 * B * H * L * G * D
+    else:
+        band = min(block_q + W, L)
+        nbytes = 4 * B * L * H * D * elt
+        ops = 4 * B * H * L * band * D
+    ms, by = bound(nbytes, ops, torch.bfloat16)
+    return ms, by, nbytes, ops
+
+
+def time_probes(card):
+    """The probes' entry points (``python -m
+    recformer_tpu_torch.benchmarks.kernel_ablation`` and
+    ``.headpair_probe``) at block_q 256 and 16, each variant's CUDA-graph
+    device time and host time beside kernel 1's graph time on the same
+    inputs in the same call, the plain versions' host time at block_q 256
+    and the bound. Returns the rows and the probe kernels' launches."""
+    from recformer_tpu_torch.benchmarks import headpair_probe as hp
+    from recformer_tpu_torch.benchmarks import kernel_ablation as ka
+    from recformer_tpu_torch.ops import band_probes as bp
+
+    reset_counts()
+    abl = {bq: ka.main(["--block-q", str(bq), "--iters", "25"]) for bq in PROBE_TIME_BLOCKS}
+    hpr = {bq: hp.main(["--block-q", str(bq), "--iters", "25"]) for bq in PROBE_TIME_BLOCKS}
+    counts = {k: v for k, v in read_counts().items() if k in PROBE_KERNELS}
+    ins = ka.make_inputs(0)
+    qkv = hp.make_inputs(0)
+    with torch.no_grad():
+        abl_plain = {v: median_launch_ms(lambda v=v: bp.band_ablation_plain(
+            **ins, variant=v, block_q=256, window=ka.W, num_heads=ka.H), n=5, warmup=1)
+            for v in bp.ABLATION_VARIANTS}
+        hp_plain = median_launch_ms(lambda: bp.band_headpair_plain(
+            *qkv, variant="pair", block_q=256, window=hp.W), n=5, warmup=1)
+    del ins, qkv
+    torch.cuda.empty_cache()
+    rows = {"band_ablation": {}, "band_headpair": {}}
+    for bq, r in abl.items():
+        for v in bp.ABLATION_VARIANTS:
+            b_ms, b_by, nbytes, ops = probe_bound("band_ablation", v, bq, ka.B, ka.L, ka.H,
+                                                  ka.W, ka.G)
+            rows["band_ablation"][f"{v}@{bq}"] = dict(
+                ms=r[f"{v}_ms"], host_ms=r[f"{v}_host_ms"], bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes, operations=ops, kernel1_ms=r["kernel1_ms"],
+                plain_ms=abl_plain[v] if bq == 256 else None)
+        emit("probe_time", kernel="band_ablation", block_q=bq,
+             graph_ms={v: r[f"{v}_ms"] for v in bp.ABLATION_VARIANTS},
+             host_ms={v: r[f"{v}_host_ms"] for v in bp.ABLATION_VARIANTS},
+             kernel1_graph_ms=r["kernel1_ms"], kernel1_host_ms=r["kernel1_host_ms"], card=card)
+    for bq, r in hpr.items():
+        for v in bp.HEADPAIR_VARIANTS:
+            b_ms, b_by, nbytes, ops = probe_bound("band_headpair", v, bq, hp.B, hp.L, 2 * hp.P,
+                                                  hp.W, 0)
+            rows["band_headpair"][f"{v}@{bq}"] = dict(
+                ms=r[f"{v}_ms"], host_ms=r[f"{v}_host_ms"], bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes, operations=ops, plain_ms=hp_plain if bq == 256 else None)
+        emit("probe_time", kernel="band_headpair", block_q=bq,
+             graph_ms={v: r[f"{v}_ms"] for v in bp.HEADPAIR_VARIANTS},
+             host_ms={v: r[f"{v}_host_ms"] for v in bp.HEADPAIR_VARIANTS}, card=card)
+    missing = [k for k in PROBE_KERNELS if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"probe_time: {missing} never launched")
+    return rows, counts
+
+
+# ---------------------------------------------------------------------------
 # the serving path at full base width
 # ---------------------------------------------------------------------------
 
@@ -939,6 +1079,64 @@ def run_serving(seed, card):
             "band_attention_fwd_tc": enc_tc + eval_tc + serve_tc}
 
 
+def run_offline_clis(seed, card):
+    """``cli.encode_items`` and ``cli.evaluate_seq`` at base width on the card
+    under ``--embed_ln_impl pallas`` (kernels 1 and 3): encode_items writes a
+    512-item catalog; evaluate_seq encodes afresh and ranks 64 users, then
+    ranks them again from encode_items' catalog, which must give the same
+    metrics (one seed, deterministic kernels)."""
+    from recformer_tpu_torch.cli import encode_items, evaluate_seq
+    from recformer_tpu_torch.data.datasets import EvalDataset
+    from recformer_tpu_torch.utils.io import load_finetune_artifacts
+
+    n_items, n_users, enc_bs, eval_bs, layers = 512, 64, 256, 16, 12
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_corpus(tmp, n_items=n_items, n_users=n_users, seed=seed)
+        train, val, test, *_ = load_finetune_artifacts(tmp)
+        eval_fw = math.ceil(len(EvalDataset(train, val, test, "test", max_items=50)) / eval_bs)
+        enc_fw = math.ceil(n_items / enc_bs)
+        npy = os.path.join(tmp, "catalog.npy")
+        common = ["--data_path", tmp, "--model_size", "base", "--embed_ln_impl", "pallas",
+                  "--device", "cuda"]
+        ev_args = common + ["--ckpt", "", "--batch_size", str(eval_bs),
+                            "--encode_batch_size", str(enc_bs)]
+        for name, call, forwards in (
+                ("encode_items", lambda: encode_items.main(
+                    common + ["--output", npy, "--batch_size", str(enc_bs)]), enc_fw),
+                ("evaluate_seq", lambda: evaluate_seq.main(ev_args), enc_fw + eval_fw),
+                ("evaluate_seq_saved_catalog",
+                 lambda: evaluate_seq.main(ev_args + ["--item_embeddings", npy]), eval_fw)):
+            reset_counts()
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            all_on_tensor_cores(name)
+            counts = {k: v for k, v in read_counts().items() if v}
+            expected = {"band_attention_fwd": layers * forwards,
+                        "band_attention_fwd_tc": layers * forwards,
+                        "embed_layernorm_fwd": forwards}
+            runs[name] = (out, counts)
+            emit("offline_cli", cli=name, seconds=secs, launches=counts,
+                 expected_launches=expected, card=card)
+            if counts != expected:
+                raise AssertionError(f"{name}: launches {counts}, expected {expected}")
+    emb = runs["encode_items"][0]
+    fresh, saved = runs["evaluate_seq"][0], runs["evaluate_seq_saved_catalog"][0]
+    ok = (emb.shape == (n_items, 768) and bool(np.isfinite(emb).all())
+          and fresh and all(math.isfinite(v) for v in fresh.values()) and saved == fresh)
+    emit("offline_clis", items=n_items, users=n_users, metrics=fresh,
+         saved_catalog_metrics_equal=saved == fresh, ok=ok)
+    if not ok:
+        raise AssertionError(f"offline CLIs: catalog {emb.shape}, metrics {fresh} vs {saved}")
+    total = {}
+    for _, counts in runs.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 # ---------------------------------------------------------------------------
 # the pretraining path at full base width
 # ---------------------------------------------------------------------------
@@ -957,31 +1155,37 @@ def pretrain_world(cfg, seed, n_items=10_000, batch=8):
 
 
 KERNELS = ("band_attention_fwd", "band_attention_bwd") + LN_KERNELS
+# the probe kernels (TPU kernels 6 and 7), launched by their entry points
+PROBE_KERNELS = ("band_ablation", "band_headpair")
 # the LayerNorm kernels' device names (embed_layernorm.cu, layernorm_bwd.cu)
 LN_KERNEL_NAME = re.compile(r"::(embed_ln_fwd|embed_ln_bwd|ln_bwd)_kernel<")
 # the counts a run reads: each kernel's, and the attention kernels' tensor-core
 # launches
-COUNTERS = KERNELS + ("band_attention_fwd_tc", "band_attention_bwd_tc")
+COUNTERS = KERNELS + ("band_attention_fwd_tc", "band_attention_bwd_tc") + PROBE_KERNELS
 
 
 def reset_counts() -> None:
     """Every kernel's launch count to 0."""
+    from recformer_tpu_torch.ops import band_probes as bp
     from recformer_tpu_torch.ops import embed_layernorm as tel
     from recformer_tpu_torch.ops import layernorm as tln
     from recformer_tpu_torch.ops import window_attention as wa
 
     wa.LAUNCHES = wa.TC_LAUNCHES = wa.BWD_LAUNCHES = wa.BWD_TC_LAUNCHES = 0
     tel.LAUNCHES = tel.BWD_LAUNCHES = tln.BWD_LAUNCHES = 0
+    bp.ABLATION_LAUNCHES = bp.HEADPAIR_LAUNCHES = 0
 
 
 def read_counts() -> dict:
     """Every count of COUNTERS since the last reset."""
+    from recformer_tpu_torch.ops import band_probes as bp
     from recformer_tpu_torch.ops import embed_layernorm as tel
     from recformer_tpu_torch.ops import layernorm as tln
     from recformer_tpu_torch.ops import window_attention as wa
 
     return dict(zip(COUNTERS, (wa.LAUNCHES, wa.BWD_LAUNCHES, tel.LAUNCHES, tel.BWD_LAUNCHES,
-                               tln.BWD_LAUNCHES, wa.TC_LAUNCHES, wa.BWD_TC_LAUNCHES)))
+                               tln.BWD_LAUNCHES, wa.TC_LAUNCHES, wa.BWD_TC_LAUNCHES,
+                               bp.ABLATION_LAUNCHES, bp.HEADPAIR_LAUNCHES)))
 
 
 def all_on_tensor_cores(what) -> tuple:
@@ -1001,7 +1205,7 @@ def launches_per_step(cfg) -> dict:
     the LayerNorm backward twice per layer (the attention and feed-forward
     blocks); the LM head's LayerNorm is flax's under every flag. In bf16
     at the base head width and window every attention forward and backward
-    takes the tensor-core kernels."""
+    takes the tensor-core kernels. A step launches no probe kernel."""
     towers, layers = 2, cfg.num_hidden_layers
     emb = towers if cfg.embed_ln_impl == "pallas" else 0
     D = cfg.hidden_size // cfg.num_attention_heads
@@ -1009,7 +1213,8 @@ def launches_per_step(cfg) -> dict:
     return {"band_attention_fwd": towers * layers, "band_attention_bwd": towers * layers,
             "band_attention_fwd_tc": towers * tc, "band_attention_bwd_tc": towers * tc,
             "embed_layernorm_fwd": emb, "embed_layernorm_bwd": emb,
-            "layernorm_bwd": 2 * towers * layers if cfg.ln_impl == "pallas_bwd" else 0}
+            "layernorm_bwd": 2 * towers * layers if cfg.ln_impl == "pallas_bwd" else 0,
+            **{k: 0 for k in PROBE_KERNELS}}
 
 
 def run_pretrain_step(seed, card, phase="pretrain_step", baseline=None, **flags):
@@ -1339,8 +1544,11 @@ def main(argv=None) -> int:
     times = time_kernels(gen, card)
     ln_errs = check_ln_kernels(gen)
     ln_times = time_ln_kernels(gen, card)
-    phases = {"serving": run_serving(args.seed, card),
-              "encode_embed_kernel": run_encode_embed_kernel(args.seed, card)}
+    probe_errs = check_probes()
+    probe_times, probe_counts = time_probes(card)
+    phases = {"probe_time": probe_counts, "serving": run_serving(args.seed, card),
+              "encode_embed_kernel": run_encode_embed_kernel(args.seed, card),
+              "offline_clis": run_offline_clis(args.seed, card)}
     phases["pretrain_step"], default_rates = run_pretrain_step(args.seed, card)
     phases["pretrain_step_ln_kernels"], _ = run_pretrain_step(
         args.seed, card, phase="pretrain_step_ln_kernels", baseline=default_rates,
@@ -1390,10 +1598,32 @@ def main(argv=None) -> int:
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape="sequence_tower", shapes=rows, card=card)
 
-    kernels = [kernel_row(name) for name in KERNELS]
+    def probe_row(name):
+        # the row's figures: the reference scripts' default block_q (256) and
+        # their last variant; every variant at block_q 256 and 16 under "variants"
+        variant = "full" if name == "band_ablation" else "pair"
+        rows = probe_times[name]
+        head = rows[f"{variant}@256"]
+        by_phase = {p: c[name] for p, c in phases.items() if c.get(name)}
+        checked = {key: e for key, e in probe_errs.items() if key[0] == name}
+        return dict(
+            name=name, route="cuda", source="recformer_tpu_torch/ops/csrc/band_probes.cu",
+            replaces=("benchmarks/kernel_ablation.py:37" if name == "band_ablation"
+                      else "benchmarks/headpair_probe.py:47,64"),
+            launches=sum(by_phase.values()), launches_by_phase=by_phase,
+            max_abs_err=max(a for (_, case, v, _), (_, a) in checked.items()
+                            if case == "defaults" and v == variant),
+            max_rel_err=max(r for r, _ in checked.values()), ms=head["ms"],
+            host_ms=head["host_ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], library_ms=None,
+            library_call="none: no single PyTorch call computes this function",
+            shape=f"{variant}, block_q 256, the probe's defaults (B 16, L 1024, H 12, D 64, W 64)",
+            variants=rows, card=card)
+
+    kernels = [kernel_row(name) for name in KERNELS] + [probe_row(n) for n in PROBE_KERNELS]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
-        raise AssertionError(f"kernels never launched on a main path: {missing}")
+        raise AssertionError(f"kernels never launched on their path: {missing}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

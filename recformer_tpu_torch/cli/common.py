@@ -27,7 +27,7 @@ def build_config(args, item_num: int = 0) -> RecformerConfig:
     for name in ("temp", "finetune_negative_sample_size", "attention_impl",
                  "max_token_num", "pooler_type", "mlm_weight", "pos_weight",
                  "scan_layers", "remat", "remat_policy", "hidden_act",
-                 "scan_unroll", "ln_impl"):
+                 "scan_unroll", "ln_impl", "embed_ln_impl"):
         if hasattr(args, name) and getattr(args, name) is not None:
             kw[name] = getattr(args, name)
     if getattr(args, "model_size", "base") == "tiny":

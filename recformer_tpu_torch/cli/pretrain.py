@@ -3,7 +3,9 @@ device.
 
 Counterpart of ``recformer_tpu/cli/pretrain.py``'s single-device path, with
 its flags plus ``--device`` (default ``cuda``; without a GPU the command
-raises unless ``--device cpu`` is given). Each step builds its batch on the
+raises unless ``--device cpu`` is given). ``--remat``/``--remat_policy`` are
+not taken yet: in the port they need per-layer activation checkpointing
+that redraws the same dropout masks in the recomputed forward. Each step builds its batch on the
 device (pair sampling, two views, whole-word MLM), runs the two towers with
 dropout, and takes an AdamW micro-step; validation on the dev set (the
 contrastive accuracy) runs every ``--valid_step_interval`` steps and after
@@ -54,6 +56,8 @@ def parse_args(argv=None):
     p.add_argument("--output_dir", type=str, default="pretrain_ckpts")
     p.add_argument("--longformer_ckpt", type=str, default=None,
                    help="HF Longformer torch .bin to initialize from")
+    p.add_argument("--hf_tokenizer", type=str, default=None,
+                   help="local path of a Hugging Face tokenizer (no download)")
     p.add_argument("--model_size", choices=["base", "tiny"], default="base")
     p.add_argument("--num_train_epochs", type=int, default=32)
     p.add_argument("--batch_size", type=int, default=8)
@@ -67,6 +71,11 @@ def parse_args(argv=None):
     p.add_argument("--hidden_act", choices=["gelu", "gelu_tanh", "relu"], default=None,
                    help="override activation: 'gelu' (exact erf) restores HF parity "
                         "for imported checkpoints; base() defaults to gelu_tanh")
+    p.add_argument("--scan_layers", action="store_true", default=None,
+                   help="recorded in the config (the JAX package's stacked layers); the "
+                        "port runs the same layer loop either way")
+    p.add_argument("--scan_unroll", type=int, default=None,
+                   help="recorded in the config; no effect on the port's layer loop")
     p.add_argument("--pooler_type", choices=["cls", "avg"], default=None,
                    help="sequence pooling: CLS token (default) or masked mean")
     p.add_argument("--max_token_num", type=int, default=None,
@@ -111,7 +120,7 @@ def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
     config = build_config(args)
-    tokenizer = make_tokenizer(config)
+    tokenizer = make_tokenizer(config, args.hf_tokenizer)
 
     train_seqs = read_json(os.path.join(args.data_path, args.train_file))
     if isinstance(train_seqs, dict):

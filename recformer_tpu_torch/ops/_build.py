@@ -33,7 +33,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 _CSRC = os.path.join(_HERE, "csrc")
 SOURCES = {name: os.path.join(_CSRC, f"{name}.cu")
            for name in ("band_attention_fwd", "band_attention_bwd", "embed_layernorm",
-                        "layernorm_bwd")}
+                        "layernorm_bwd", "band_probes")}
 HEADERS = tuple(os.path.join(_CSRC, h)
                 for h in ("band_common.cuh", "band_mma.cuh", "row_reduce.cuh"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -80,6 +80,16 @@ SIGNATURES = {
         "layernorm_bwd": (
             [_I, _P, _P, _P, _P, _P, _P,                  # dtype, x gamma dout dx partial dgb
              _I, _I, _F, _P],                              # M H eps stream
+            _I),
+    },
+    "band_probes": {
+        "band_ablation": (
+            [_I, _P, _P, _P, _P, _P, _P, _P,              # variant, q kpad vpad keyloc gk gvalid, out
+             _I, _I, _I, _I, _I, _I, _P],                  # B L H G window block_q stream
+            _I),
+        "band_headpair": (
+            [_I, _P, _P, _P, _P,                          # variant, q k v, out
+             _I, _I, _I, _I, _I, _P],                      # B L pairs window block_q stream
             _I),
     },
 }

@@ -6,8 +6,12 @@ kernels stored transposed (flax ``(in, out)`` vs torch ``(out, in)``), is
 the one ``recformer_tpu/training/checkpoint.py`` keeps in
 ``_torch_name_to_flax_path``; this module holds its own copy.
 
-Only the unrolled ``layer_{i}`` tree is handled; the stacked ``scan_layers``
-layout comes later.
+Both encoder layouts of the flax tree are handled: the unrolled
+``encoder/layer_{i}/...`` siblings and the stacked ``scan_layers`` layout
+``encoder/layers/layer/...``, whose leaves carry a leading
+``(num_layers,)`` axis. :func:`stack_layer_params` and
+:func:`unstack_layer_params` are the port's own copy of the JAX package's
+functions of the same names (``training/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -97,12 +101,70 @@ def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
     return out
 
 
+def _is_unrolled_layer_dict(d) -> bool:
+    return (isinstance(d, dict) and "layer_0" in d
+            and all(re.fullmatch(r"layer_\d+", k) for k in d))
+
+
+def _is_stacked_layer_dict(d) -> bool:
+    return isinstance(d, dict) and set(d) == {"layer"} and isinstance(d["layer"], dict)
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack_leaves(trees):
+    """One tree of the same structure whose leaves stack those of ``trees``
+    along a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_leaves([t[k] for t in trees]) for k in first}
+    return np.stack([np.asarray(t) for t in trees])
+
+
+def stack_layer_params(tree):
+    """Unrolled encoder layers (``layer_0..layer_{n-1}`` under ``encoder``)
+    in the ``scan_layers`` layout (``layers/layer`` with a leading
+    ``(num_layers,)`` axis on every leaf). Walks the whole tree."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if k == "encoder" and _is_unrolled_layer_dict(v):
+            layers = [stack_layer_params(v[f"layer_{i}"]) for i in range(len(v))]
+            out[k] = {"layers": {"layer": _stack_leaves(layers)}}
+        else:
+            out[k] = stack_layer_params(v)
+    return out
+
+
+def unstack_layer_params(tree):
+    """Inverse of :func:`stack_layer_params`."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if (k == "encoder" and isinstance(v, dict) and "layers" in v
+                and _is_stacked_layer_dict(v["layers"])):
+            stacked = v["layers"]["layer"]
+            n = np.asarray(next(iter(_flatten(stacked).values()))).shape[0]
+            out[k] = {f"layer_{i}": _map_leaves(lambda x, i=i: np.asarray(x)[i], stacked)
+                      for i in range(n)}
+        else:
+            out[k] = unstack_layer_params(v)
+    return out
+
+
 def from_flax_params(tree) -> Dict[str, torch.Tensor]:
     """The JAX package's parameters (``{'params': ...}`` or a bare tree of
-    numpy arrays) as the port's state dict. Raises KeyError on a leaf the
-    port has no name for."""
+    numpy arrays, the encoder unrolled or stacked) as the port's state dict.
+    Raises KeyError on a leaf the port has no name for."""
     if isinstance(tree, dict) and "params" in tree:
         tree = tree["params"]
+    tree = unstack_layer_params(tree)
     sd = {}
     for path, arr in _flatten(tree).items():
         name, transpose = flax_path_to_torch_name(path)
@@ -111,8 +173,9 @@ def from_flax_params(tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def to_flax_params(state_dict: Dict[str, torch.Tensor]):
-    """The port's state dict as a bare flax tree of numpy arrays."""
+def to_flax_params(state_dict: Dict[str, torch.Tensor], stacked: bool = False):
+    """The port's state dict as a bare flax tree of numpy arrays; with
+    ``stacked`` the encoder takes the ``scan_layers`` layout."""
     root: dict = {}
     for name, tensor in state_dict.items():
         path, transpose = torch_name_to_flax_path(name)
@@ -121,4 +184,4 @@ def to_flax_params(state_dict: Dict[str, torch.Tensor]):
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = np.ascontiguousarray(a.T if transpose else a)
-    return root
+    return stack_layer_params(root) if stacked else root

@@ -19,8 +19,10 @@ def port_modules():
 
 def test_importing_every_module_loads_no_jax():
     mods = port_modules()
-    for name in ("window_attention", "layernorm", "embed_layernorm"):
-        assert f"recformer_tpu_torch.ops.{name}" in mods
+    for name in ("ops.window_attention", "ops.layernorm", "ops.embed_layernorm",
+                 "ops.band_probes", "benchmarks.kernel_ablation", "benchmarks.headpair_probe",
+                 "cli.encode_items", "cli.evaluate_seq", "utils.timing"):
+        assert f"recformer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -48,7 +50,9 @@ def test_sources_name_no_jax():
     assert len(sources) > 20
     names = {os.path.basename(p) for p in sources}
     assert {"embed_layernorm.cu", "layernorm_bwd.cu", "row_reduce.cuh", "layernorm.py",
-            "embed_layernorm.py", "band_mma.cuh"} <= names
+            "embed_layernorm.py", "band_mma.cuh", "band_probes.cu", "band_probes.py",
+            "kernel_ablation.py", "headpair_probe.py", "encode_items.py", "evaluate_seq.py",
+            "timing.py"} <= names
     for path in sources:
         with open(path) as f:
             text = f.read()
