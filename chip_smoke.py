@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and pretraining paths once on one CUDA card.
+"""Drive the PyTorch port's serving, pretraining and finetuning paths once on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -75,15 +75,36 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     against the plain split LayerNorm: cosine > 0.999, and each attention
     projection's (each LayerNorm parameter's) gradient within 1e-3 relative;
 12. pretrain_cli, pretrain_cli_ln_impl: ``cli.pretrain --model_size base
-    --device cuda`` on a small corpus (accumulation 2, dev validation, best
-    and last saved), then again with ``--ln_impl pallas_bwd``.
+    --device cuda`` on a small corpus (accumulation 2, dev validation, best,
+    last, the train state and ``--save_top_k 2`` saved), then again with
+    ``--ln_impl pallas_bwd``; pretrain_cli_preemption: a real SIGTERM after
+    the 5th step, latched by the CLI's handler, saves the train state and
+    last at step 5; ``--resume`` runs to the end (``--save_top_k 1``);
+13. finetune_step, finetune_step_sampled: 20 base-width finetune steps at
+    batch 16 over the 10,000-item table (histories of 16-50 items, the
+    history view at (16, 1024)), dropout 0.1, accumulation 8, the full
+    softmax over a random catalog or 1,000 sampled negatives: steps/s,
+    examples/s, peak memory, one profiled step (device kernels, busy time,
+    idle share), 12 + 12 attention launches a step, all on the tensor cores;
+    then 20 steps on one fixed batch with dropout off, whose loss must fall;
+14. finetune_vs_chunked: the float32 gradients of one finetune loss through
+    the attention kernels against the chunked twin (the gate of 11, and the
+    pooled outputs' cosine > 0.999);
+15. finetune_cli, finetune_cli_resume: ``cli.finetune --model_size base
+    --device cuda`` on 2,048 items and 128 users (histories of 16-50 items),
+    two epochs a stage: outputs written, finite test metrics, kernel 1 and 2
+    launches as the code says (encodes, train steps, dev and test ranking);
+    then a run stopped at its first stage-2 dev row and continued with
+    ``--resume``: the restored parameters equal the saved train state bit
+    for bit, and it resumes at stage 2 epoch 0.
 
 Launch counts, set to 0 just before each path and read just after, show that
 the paths ran the kernels (each kernel on its path at least once; the
 probes' path is probe_time), as many times as the code says they must (the
 attention kernels' tensor-core launches among them: every forward of
-serving, and all 24 forwards and 24 backwards of a bf16 step). Then
-the kernels line, the card line and, last, the result line. Without CUDA, or
+serving, all 24 forwards and 24 backwards of a bf16 pretraining step and
+the 12 and 12 of a finetune step). Then the command time, the kernels line,
+the card line and, last, the result line. Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
 result.
 """
@@ -95,6 +116,7 @@ import json
 import math
 import os
 import re
+import signal
 import sys
 import tempfile
 import time
@@ -102,7 +124,7 @@ import time
 import numpy as np
 import torch
 
-from recformer_tpu_torch.utils.timing import capture, card_line, graph_launch_ms
+from recformer_tpu_torch.utils.timing import busy_ms, capture, card_line, graph_launch_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / fp32 core
@@ -961,14 +983,17 @@ def time_probes(card):
 # the serving path at full base width
 # ---------------------------------------------------------------------------
 
-def write_corpus(root, n_items=64, n_users=8, seed=0):
+def write_corpus(root, n_items=64, n_users=8, seed=0, hist=(3, 12)):
+    """A corpus of ``n_items`` items and ``n_users`` histories of
+    ``hist[0]`` to ``hist[1] - 1`` items; val and test hold each history's
+    last item."""
     rng = np.random.default_rng(seed)
     words = ["red", "blue", "bolt", "nut", "gear", "led", "cap", "fan", "oak", "tin", "zinc"]
     meta = {f"I{i:03d}": {"make": " ".join(rng.choice(words, 3)),
                           "hue": " ".join(rng.choice(words, 2)), "size": str(i)}
             for i in range(n_items)}
     smap = {f"I{i:03d}": i for i in range(n_items)}
-    seqs = {f"u{u}": [int(x) for x in rng.integers(0, n_items, size=rng.integers(3, 12))]
+    seqs = {f"u{u}": [int(x) for x in rng.integers(0, n_items, size=rng.integers(*hist))]
             for u in range(n_users)}
     split = {str(u): s for u, s in enumerate(seqs.values())}
     for name, obj in (("meta_data", meta), ("smap", smap), ("train", split),
@@ -1374,15 +1399,22 @@ def step_grads(seed, flags_a, flags_b):
         return {n: p.grad.float() for n, p in model.named_parameters()}, float(loss.detach())
 
     (ga, loss_a), (gb, loss_b) = grads(flags_a), grads(flags_b)
+    return (*grad_stats(ga, gb), loss_a, loss_b)
+
+
+def grad_stats(ga, gb):
+    """Two gradient sets' flattened cosine, each tensor's share of b's
+    squared norm and each tensor's relative error; frees both."""
     cos = float(torch.nn.functional.cosine_similarity(
         torch.cat([g.flatten() for g in ga.values()]),
         torch.cat([gb[n].flatten() for n in ga]), dim=0))
     total = sum(float(g.norm() ** 2) for g in gb.values())
     share = {n: float(g.norm() ** 2) / total for n, g in gb.items()}
     rel = {n: float((g - gb[n]).norm() / gb[n].norm().clamp_min(1e-30)) for n, g in ga.items()}
-    del ga, gb
+    ga.clear()
+    gb.clear()
     torch.cuda.empty_cache()
-    return cos, share, rel, loss_a, loss_b
+    return cos, share, rel
 
 
 def gate_grads(phase, pattern, min_gated, cos, share, rel, **record):
@@ -1427,6 +1459,282 @@ def run_pretrain_ln_kernels_vs_plain(seed):
         dict(embed_ln_impl="xla", ln_impl="split_bwd"))
     gate_grads("pretrain_ln_kernels_vs_plain", LAYERNORM_PARAM, 2 * 2 * 12 + 2, cos, share,
                rel, loss_kernels=loss_k, loss_plain=loss_p)
+
+
+# ---------------------------------------------------------------------------
+# the finetuning path at full base width
+# ---------------------------------------------------------------------------
+
+def finetune_launches_per_step(cfg) -> dict:
+    """Launches of each kernel one finetune step makes, by reading the code:
+    the sequence tower's forward and backward, the attention kernels once
+    per layer each (on the tensor cores in bf16 at the base head width and
+    window), no other kernel."""
+    layers = cfg.num_hidden_layers
+    D = cfg.hidden_size // cfg.num_attention_heads
+    tc = sum(tensor_core_shape(cfg.compute_dtype, D, w, 1) for w in cfg.attention_window)
+    return {**{k: 0 for k in COUNTERS}, "band_attention_fwd": layers,
+            "band_attention_bwd": layers, "band_attention_fwd_tc": tc,
+            "band_attention_bwd_tc": tc}
+
+
+def profile_call(fn) -> dict:
+    """One call of ``fn`` after a warm-up call and one unprofiled timed call,
+    then one under ``torch.profiler``: its device kernels, the device's busy
+    time (the union of their intervals) and the idle share against the
+    unprofiled wall time (and the profiled one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof.events())
+    busy = busy_ms(kernels)
+    return {"device_kernels": len(kernels), "device_busy_ms": busy, "wall_ms": plain,
+            "profiled_wall_ms": wall, "device_idle_share": 1.0 - busy / plain,
+            "device_idle_share_profiled": 1.0 - busy / wall}
+
+
+def finetune_world(cfg, seed, batch=16):
+    """``pretrain_world``'s table and histories (16-50 items, so the history
+    view fills its 1024 tokens) at ``batch``, and a random catalog of the
+    table's items in the compute type, on the card."""
+    table, item_ids, seq_lens = pretrain_world(cfg, seed, batch=batch)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    catalog = torch.randn(int(table["lengths"].shape[0]) - 1, cfg.hidden_size, generator=gen,
+                          device="cuda").to(cfg.compute_dtype)
+    return table, item_ids, seq_lens, catalog
+
+
+def run_finetune_step(seed, card, negatives, phase):
+    """20 timed base-width finetune steps (after 2 warm-up steps) at batch
+    16, dropout 0.1, accumulation 8 (the CLI's default), the full softmax
+    (``negatives`` 0) or the sampled one; launches per step; one profiled
+    step; then 20 steps on one fixed batch (targets and negatives drawn
+    once) with dropout off, whose loss must fall. Returns the launch counts."""
+    from recformer_tpu_torch.cli.common import init_model_params
+    from recformer_tpu_torch.config import RecformerConfig
+    from recformer_tpu_torch.data.device_pipeline import make_finetune_batch
+    from recformer_tpu_torch.models.heads import RecformerForSeqRec
+    from recformer_tpu_torch.training.optimizer import create_optimizer
+    from recformer_tpu_torch.training.steps import finetune_loss, make_finetune_step
+
+    cfg = RecformerConfig.base(finetune_negative_sample_size=negatives)
+    assert cfg.attention_probs_dropout_prob == 0.1 and cfg.compute_dtype == torch.bfloat16
+    B = 16
+    table, item_ids, seq_lens, catalog = finetune_world(cfg, seed, batch=B)
+    model = init_model_params(RecformerForSeqRec(cfg), cfg, device="cuda", seed=seed)
+    opt = create_optimizer(model, learning_rate=5e-5, warmup_steps=100, total_steps=10_000,
+                           grad_accum_steps=8)
+    step = make_finetune_step(cfg, model, opt)
+    for _ in range(2):
+        step(seed, table, item_ids, seq_lens, catalog)
+    torch.cuda.synchronize()
+
+    n = 20
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = [step(seed, table, item_ids, seq_lens, catalog) for _ in range(n)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    expected = finetune_launches_per_step(cfg)
+    prof = profile_call(lambda: step(seed, table, item_ids, seq_lens, catalog))
+    ok = (all(counts[k] == expected[k] * n for k in COUNTERS)
+          and all(math.isfinite(x) for x in losses))
+    emit(phase, config=f"RecformerConfig.base(finetune_negative_sample_size={negatives})",
+         batch=B, view=[B, cfg.max_token_num], catalog=list(catalog.shape), steps=n,
+         grad_accum_steps=8, seconds=secs, steps_per_s=n / secs, examples_per_s=B * n / secs,
+         peak_memory_gib=peak / 2 ** 30, profiled_step=prof,
+         launches_per_step={k: counts[k] / n for k in COUNTERS}, expected_per_step=expected,
+         loss_first=losses[0], loss_last=losses[-1], card=card, ok=ok)
+    if not ok:
+        raise AssertionError(f"{phase}: launches {counts} over {n} steps (expected {expected} "
+                             f"each step), losses {losses}")
+    del model, opt, step
+
+    cfg0 = cfg.replace(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    model0 = init_model_params(RecformerForSeqRec(cfg0), cfg0, device="cuda", seed=seed)
+    opt0 = create_optimizer(model0, learning_rate=1e-4, warmup_steps=2, total_steps=100)
+    batch, labels = make_finetune_batch(torch.Generator(device="cuda").manual_seed(seed + 5),
+                                        table, item_ids, seq_lens, cfg0)
+    fixed = []
+    for _ in range(20):
+        loss = finetune_loss(cfg0, model0(batch), catalog, labels,
+                             torch.Generator(device="cuda").manual_seed(seed + 6))
+        loss.backward()
+        opt0.step()
+        fixed.append(float(loss.detach()))
+    falls = all(math.isfinite(x) for x in fixed) and np.mean(fixed[-3:]) < np.mean(fixed[:3])
+    emit(f"{phase}_fixed_batch", steps=20, dropout=0.0, losses=fixed, falls=bool(falls),
+         ok=bool(falls))
+    if not falls:
+        raise AssertionError(f"{phase}_fixed_batch: loss did not fall: {fixed}")
+    del model0, opt0
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_finetune_vs_chunked(seed):
+    """The float32 gradients of one deterministic finetune loss (full
+    softmax over a 10,000-item catalog) through the attention kernels
+    against the plain chunked attention, from the same weights and batch:
+    cosine > 0.999, each attention projection within 1e-3 relative (the
+    gate of pretrain_vs_chunked), and the pooled outputs' cosine."""
+    from recformer_tpu_torch.cli.common import init_model_params
+    from recformer_tpu_torch.config import RecformerConfig
+    from recformer_tpu_torch.data.device_pipeline import make_finetune_batch
+    from recformer_tpu_torch.models.heads import RecformerForSeqRec, cosine_similarity
+    from recformer_tpu_torch.training.steps import finetune_loss
+
+    cfg = RecformerConfig.base(dtype="float32")
+    table, item_ids, seq_lens, catalog = finetune_world(cfg, seed + 7)
+    batch, labels = make_finetune_batch(torch.Generator(device="cuda").manual_seed(seed),
+                                        table, item_ids, seq_lens, cfg)
+    model = init_model_params(RecformerForSeqRec(cfg), cfg, device="cuda", seed=seed)
+    state = {n: t.clone() for n, t in model.state_dict().items()}
+    del model
+
+    def grads(impl):
+        c = cfg.replace(attention_impl=impl)
+        model = RecformerForSeqRec(c).to("cuda")
+        model.load_state_dict(state)
+        pooled = model(batch)
+        loss = finetune_loss(c, pooled, catalog, labels, None)
+        loss.backward()
+        return ({n: p.grad.float() for n, p in model.named_parameters()}, float(loss.detach()),
+                pooled.detach())
+
+    (ga, loss_k, pooled_k), (gb, loss_c, pooled_c) = grads("pallas"), grads("chunked")
+    pooled_cos = float(cosine_similarity(pooled_k, pooled_c).min())
+    cos, share, rel = grad_stats(ga, gb)
+    gate_grads("finetune_vs_chunked", ATTN_PROJ, 4 * 12, cos, share, rel, loss_kernel=loss_k,
+               loss_chunked=loss_c, min_pooled_cosine=pooled_cos)
+    if pooled_cos <= 0.999:
+        raise AssertionError(f"finetune_vs_chunked: pooled cosine {pooled_cos}")
+
+
+class _Interrupt(Exception):
+    pass
+
+
+def run_finetune_cli(seed, card):
+    """``cli.finetune --model_size base --device cuda`` on a corpus of 2,048
+    items and 128 users with histories of 16-50 items: two epochs a stage,
+    dev ranking every epoch, batch 16, accumulation 2, otherwise the
+    defaults (1,000 sampled negatives). The outputs must be written, the
+    test metrics finite, and kernels 1 and 2 launched exactly as the code
+    says. Then a second run is stopped in stage 2 (its log raises at the
+    first stage-2 dev row) and continued with ``--resume``: the parameters
+    it restores must equal the saved train state bit for bit, and it must
+    say where it resumed. Returns the launch counts of the first run and of
+    the resumed one."""
+    from recformer_tpu_torch.cli import finetune
+    from recformer_tpu_torch.training import loops
+
+    n_items, n_users, bs, enc_bs, eval_bs, epochs, layers = 2048, 128, 16, 256, 32, 2, 12
+    steps = epochs * (n_users // bs)  # a stage
+    enc_fw, eval_fw = math.ceil(n_items / enc_bs), math.ceil(n_users / eval_bs)
+
+    def expect(forwards, backwards):
+        return {**{k: 0 for k in COUNTERS}, "band_attention_fwd": layers * forwards,
+                "band_attention_fwd_tc": layers * forwards,
+                "band_attention_bwd": layers * backwards,
+                "band_attention_bwd_tc": layers * backwards}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        write_corpus(data, n_items=n_items, n_users=n_users, seed=seed, hist=(16, 51))
+        args = ["--data_path", data, "--model_size", "base", "--device", "cuda",
+                "--num_train_epochs", str(epochs), "--verbose", "1", "--batch_size", str(bs),
+                "--gradient_accumulation_steps", "2", "--seed", str(seed)]
+        out = os.path.join(tmp, "out")
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = finetune.main(args + ["--output_dir", out])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        written = sorted(os.listdir(os.path.join(out, "data")))
+        # the initial encode and one a stage-1 epoch; the train steps of both
+        # stages; the dev ranking every epoch of both stages, and the test
+        expected = expect((1 + epochs) * enc_fw + 2 * steps + (2 * epochs + 1) * eval_fw,
+                          2 * steps)
+        ok = (counts == expected and written == ["best_model.pt", "config.json",
+                                                 "item_embeddings.npy", "test_metrics.json"]
+              and bool(metrics) and all(math.isfinite(v) for v in metrics.values()))
+        emit("finetune_cli", items=n_items, users=n_users, epochs_per_stage=epochs,
+             train_steps=2 * steps, seconds=secs, test_metrics=metrics, written=written,
+             launches=counts, expected_launches=expected, card=card, ok=ok)
+        if not ok:
+            raise AssertionError(f"finetune_cli: written {written}, metrics {metrics}, "
+                                 f"launches {counts} (expected {expected})")
+
+        out2 = os.path.join(tmp, "out2")
+        real_loop, real_restore = finetune.finetune_two_stage, loops.restore_train_state
+        logs, restored = [], {}
+
+        def stop_in_stage2(msg):
+            print(msg, flush=True)
+            if "[stage2]" in str(msg):
+                raise _Interrupt
+
+        def record(msg):
+            logs.append(str(msg))
+            print(msg, flush=True)
+
+        def checked_restore(path, model, optimizer):
+            pos = real_restore(path, model, optimizer)
+            saved = torch.load(path, map_location="cpu", weights_only=True)["params"]
+            restored["params_bit_equal"] = all(torch.equal(v.cpu(), saved[k])
+                                               for k, v in model.state_dict().items())
+            return pos
+
+        try:
+            finetune.finetune_two_stage = lambda *a, **k: real_loop(*a, **k, log=stop_in_stage2)
+            interrupted = False
+            try:
+                finetune.main(args + ["--output_dir", out2])
+            except _Interrupt:
+                interrupted = True
+            stale = os.path.exists(os.path.join(out2, "data", "loop_state", "loop.json"))
+            finetune.finetune_two_stage = lambda *a, **k: real_loop(*a, **k, log=record)
+            loops.restore_train_state = checked_restore
+            reset_counts()
+            resumed = finetune.main(args + ["--output_dir", out2, "--resume"])
+            torch.cuda.synchronize()
+            resume_counts = read_counts()
+        finally:
+            finetune.finetune_two_stage, loops.restore_train_state = real_loop, real_restore
+        resumed_at = [m for m in logs if "resumed at" in m]
+        # stage 2 from its first epoch: its train steps, its dev rankings, the test
+        resume_expected = expect(steps + (epochs + 1) * eval_fw, steps)
+        ok = (interrupted and stale and restored.get("params_bit_equal") is True
+              and len(resumed_at) == 1 and "resumed at stage 2 epoch 0" in resumed_at[0]
+              and resume_counts == resume_expected
+              and not os.path.exists(os.path.join(out2, "data", "loop_state"))
+              and all(math.isfinite(v) for v in resumed.values()))
+        emit("finetune_cli_resume", interrupted_in_stage2=interrupted,
+             loop_state_left=stale, restored=restored, resumed_at=resumed_at,
+             test_metrics=resumed, uninterrupted_test_metrics=metrics,
+             launches=resume_counts, expected_launches=resume_expected, ok=ok)
+        if not ok:
+            raise AssertionError(f"finetune_cli_resume: interrupted {interrupted}, stale "
+                                 f"{stale}, {restored}, {resumed_at}, launches "
+                                 f"{resume_counts} (expected {resume_expected})")
+    return counts, resume_counts
 
 
 def run_encode_embed_kernel(seed, card):
@@ -1495,9 +1803,10 @@ def run_pretrain_cli(seed, phase="pretrain_cli", extra=()):
                              "--model_size", "base", "--num_train_epochs", "1",
                              "--batch_size", "8", "--gradient_accumulation_steps", "2",
                              "--warmup_steps", "1", "--seed", str(seed), "--device", "cuda",
-                             *extra])
+                             "--save_top_k", "2", *extra])
         counts = read_counts()
         written = sorted(os.listdir(out_dir))
+        topk = sorted(os.listdir(os.path.join(out_dir, "topk")))
         cfg = RecformerConfig.load(os.path.join(out_dir, "config.json"))
     per_step = launches_per_step(cfg)
     # every step runs forward and backward; the one dev validation runs the
@@ -1506,17 +1815,86 @@ def run_pretrain_cli(seed, phase="pretrain_cli", extra=()):
     expected["band_attention_fwd"] += per_step["band_attention_fwd"]
     expected["band_attention_fwd_tc"] += per_step["band_attention_fwd_tc"]
     expected["embed_layernorm_fwd"] += per_step["embed_layernorm_fwd"]
-    ok = (res["steps"] == 3 and res["updates"] == 1 and {"best.pt", "last.pt"} <= set(written)
+    ok = (res["steps"] == 3 and res["updates"] == 1
+          and {"best.pt", "last.pt", "state.pt"} <= set(written) and len(topk) == 1
           and counts == expected)
-    emit(phase, **res, args=list(extra), ln_impl=cfg.ln_impl, written=written, launches=counts,
-         expected_launches=expected, ok=ok)
+    emit(phase, **res, args=list(extra), ln_impl=cfg.ln_impl, written=written, topk=topk,
+         launches=counts, expected_launches=expected, ok=ok)
     if not ok:
         raise AssertionError(f"{phase}: {res}, {written}, launches {counts} "
                              f"(expected {expected})")
     return counts
 
 
+class _SignalAfter(dict):
+    """The preemption flag of ``cli.pretrain``, read at every step boundary:
+    at the ``n``-th read it sends SIGTERM to this process, which the real
+    handler latches before the read returns."""
+
+    def __init__(self, flag, n):
+        super().__init__(flag)
+        self.flag, self.n, self.reads = flag, n, 0
+
+    def __getitem__(self, key):
+        self.reads += 1
+        if self.reads == self.n:
+            os.kill(os.getpid(), signal.SIGTERM)
+            if self.flag["signal"] != signal.SIGTERM:
+                raise AssertionError("SIGTERM was not latched by the preemption handler")
+        return self.flag[key]
+
+
+def run_pretrain_preemption(seed):
+    """``cli.pretrain --model_size base`` for two epochs of 3 steps with
+    ``--save_top_k 1``, stopped by a real SIGTERM after its 5th step: the
+    handler latches it, the step boundary saves ``state.pt`` and ``last.pt``
+    and returns; ``--resume`` restores step 5, restarts epoch 1 from its
+    first batch and runs to the end. The attention kernels' launches of
+    both runs as the code says (8 steps, two dev validations)."""
+    from recformer_tpu_torch.cli import pretrain
+    from recformer_tpu_torch.config import RecformerConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        seqs = write_corpus(tmp, n_users=24, seed=seed)
+        with open(os.path.join(tmp, "train.json"), "w") as f:
+            json.dump(list(seqs.values()), f)
+        with open(os.path.join(tmp, "dev.json"), "w") as f:
+            json.dump(list(seqs.values())[:8], f)
+        out_dir = os.path.join(tmp, "out")
+        args = ["--data_path", tmp, "--output_dir", out_dir, "--model_size", "base",
+                "--num_train_epochs", "2", "--batch_size", "8", "--gradient_accumulation_steps",
+                "2", "--warmup_steps", "1", "--seed", str(seed), "--save_top_k", "1",
+                "--device", "cuda"]
+        real = pretrain._install_preemption_handler
+        reset_counts()
+        try:
+            pretrain._install_preemption_handler = lambda: _SignalAfter(real(), 5)
+            first = pretrain.main(args)
+        finally:
+            pretrain._install_preemption_handler = real
+        written = sorted(os.listdir(out_dir))
+        second = pretrain.main(args + ["--resume"])
+        counts = read_counts()
+        topk = sorted(os.listdir(os.path.join(out_dir, "topk")))
+        cfg = RecformerConfig.load(os.path.join(out_dir, "config.json"))
+    per_step = launches_per_step(cfg)
+    expected = {k: v * 8 for k, v in per_step.items()}
+    for k in ("band_attention_fwd", "band_attention_fwd_tc", "embed_layernorm_fwd"):
+        expected[k] += 2 * per_step[k]
+    ok = (first["steps"] == 5 and first.get("preempted") == signal.SIGTERM
+          and {"state.pt", "last.pt"} <= set(written) and "config.json" not in written
+          and second["steps"] == 8 and "preempted" not in second and len(topk) == 1
+          and counts == expected)
+    emit("pretrain_cli_preemption", first=first, written_at_preemption=written, resumed=second,
+         topk=topk, launches=counts, expected_launches=expected, ok=ok)
+    if not ok:
+        raise AssertionError(f"pretrain_cli_preemption: {first}, {written}, {second}, {topk}, "
+                             f"launches {counts} (expected {expected})")
+    return counts
+
+
 def main(argv=None) -> int:
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -1559,6 +1937,12 @@ def main(argv=None) -> int:
     phases["pretrain_cli"] = run_pretrain_cli(args.seed)
     phases["pretrain_cli_ln_impl"] = run_pretrain_cli(
         args.seed, phase="pretrain_cli_ln_impl", extra=("--ln_impl", "pallas_bwd"))
+    phases["pretrain_cli_preemption"] = run_pretrain_preemption(args.seed)
+    phases["finetune_step"] = run_finetune_step(args.seed, card, 0, "finetune_step")
+    phases["finetune_step_sampled"] = run_finetune_step(args.seed, card, 1000,
+                                                        "finetune_step_sampled")
+    run_finetune_vs_chunked(args.seed)
+    phases["finetune_cli"], phases["finetune_cli_resume"] = run_finetune_cli(args.seed, card)
 
     sources = {"band_attention_fwd": "band_attention_fwd.cu",
                "band_attention_bwd": "band_attention_bwd.cu",
@@ -1624,6 +2008,7 @@ def main(argv=None) -> int:
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")
+    emit("command_time", seconds=time.perf_counter() - t_start, limit_seconds=1200)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -11,7 +11,15 @@ dropout, and takes an AdamW micro-step; validation on the dev set (the
 contrastive accuracy) runs every ``--valid_step_interval`` steps and after
 every epoch. The parameters are saved as torch state dicts, ``best.pt`` (by
 dev accuracy) and ``last.pt`` in ``--output_dir``, which
-``cli.common.maybe_load_pretrained`` reads back.
+``cli.common.maybe_load_pretrained`` reads back, and the ``--save_top_k``
+best by dev accuracy under ``--output_dir/topk``.
+
+Resume: after every epoch, and at the next step boundary after a SIGTERM or
+SIGINT (preemption, Ctrl-C), the train state (parameters, optimizer, step,
+the epoch to run next, the best accuracy) goes to ``state.pt``; a
+preempted run also writes ``last.pt``, prints how to restart and returns.
+``--resume`` continues from ``state.pt``: the interrupted epoch restarts
+from its first batch. A step's draws are seeded by ``(--seed, micro-step)``.
 
 Data contract: ``--train_file``/``--dev_file`` are JSON lists (or dicts) of
 item sequences, raw item keys or dense ids; ``--item_attr_file`` maps item
@@ -25,17 +33,24 @@ from __future__ import annotations
 
 import argparse
 import os
+import signal
 import time
 
 import torch
 
 from ..data.datasets import SequenceDataset
 from ..models.heads import RecformerForPretraining
+from ..training.checkpoint import (
+    TopKCheckpointManager,
+    restore_train_state,
+    save_params,
+    save_train_state,
+)
 from ..training.optimizer import create_optimizer
 from ..training.steps import make_pretrain_eval_step, make_pretrain_step
 from ..utils.device import resolve_device
 from ..utils.io import read_json
-from ..utils.rng import StepRNG
+from ..utils.rng import StepRNG, fold_in
 from .common import (
     build_config,
     init_model_params,
@@ -83,14 +98,45 @@ def parse_args(argv=None):
     p.add_argument("--ln_impl", choices=["xla", "pallas_bwd", "split_bwd"], default=None,
                    help="encoder-block LayerNorm: flax's (default), the backward kernel, "
                         "or the split plain backward (see config.ln_impl)")
+    p.add_argument("--save_top_k", type=int, default=5,
+                   help="keep this many best checkpoints by dev accuracy under output_dir/topk")
     p.add_argument("--fix_word_embedding", action="store_true")
     p.add_argument("--valid_step_interval", type=int, default=2000)
     p.add_argument("--valid_batches", type=int, default=0,
                    help="cap dev validation at this many batches; 0 = the full dev set")
+    p.add_argument("--resume", action="store_true",
+                   help="resume parameters, optimizer and position from output_dir/state.pt")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' (default) raises without a GPU")
     return p.parse_args(argv)
+
+
+def _install_preemption_handler() -> dict:
+    """Catch SIGTERM and SIGINT and latch the signal in the returned dict,
+    so the loop checkpoints at the next step boundary instead of dying in a
+    step."""
+    flag = {"signal": 0}
+
+    def handler(signum, frame):
+        flag["signal"] = signum
+        print(f"[pretrain] caught signal {signum}; checkpointing at the next step boundary",
+              flush=True)
+
+    for s in (signal.SIGTERM, signal.SIGINT):
+        try:
+            signal.signal(s, handler)
+        except ValueError:  # not the main thread
+            pass
+    return flag
+
+
+def _restore_handlers(handlers: dict) -> None:
+    for sig, handler in handlers.items():
+        try:
+            signal.signal(sig, handler)
+        except (ValueError, TypeError):  # not the main thread, or not set from Python
+            pass
 
 
 def _crossed(interval: int, prev_step: int, step: int) -> bool:
@@ -168,40 +214,67 @@ def main(argv=None):
     step = make_pretrain_step(config, model, optimizer)
     eval_step = make_pretrain_eval_step(config, model)
 
-    rng = StepRNG(args.seed, device)
     os.makedirs(args.output_dir, exist_ok=True)
+    state_path = os.path.join(args.output_dir, "state.pt")
     best_acc = -1.0
-    global_step = 0
-    last_log_step = 0
+    global_step = start_epoch = 0
+    if args.resume and os.path.exists(state_path):
+        pos = restore_train_state(state_path, model, optimizer)
+        start_epoch, global_step, best_acc = pos["epoch"], pos["global_step"], pos["best_acc"]
+        print(f"[pretrain] resumed at step {global_step} (micro-step {optimizer.micro_steps}), "
+              f"epoch {start_epoch}")
+    handlers = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM, signal.SIGINT)}
+    preempt = _install_preemption_handler()
+    topk = TopKCheckpointManager(os.path.join(args.output_dir, "topk"), k=args.save_top_k,
+                                 mode="max")
+    last_log_step = global_step
     t0 = time.time()
 
     def validate_and_keep_best():
         nonlocal best_acc
         acc = _validate(eval_step, args.seed, device, table, dev_ds, args.batch_size,
                         args.valid_batches)
+        topk.save(model, global_step, acc)
         if acc > best_acc:
             best_acc = acc
-            torch.save(model.state_dict(), os.path.join(args.output_dir, "best.pt"))
+            save_params(os.path.join(args.output_dir, "best.pt"), model)
         return acc
 
-    for epoch in range(args.num_train_epochs):
-        for batch in train_ds.batches(args.batch_size, shuffle=True, seed=epoch,
-                                      drop_last=True):
-            prev_step = global_step
-            metrics = step(rng, table, torch.from_numpy(batch.item_ids).to(device),
-                           torch.from_numpy(batch.seq_lens).to(device))
-            global_step += 1
-            if _crossed(50, prev_step, global_step):
-                m = {k: float(v) for k, v in metrics.items()}
-                rate = args.batch_size * (global_step - last_log_step) / (time.time() - t0)
-                t0 = time.time()
-                last_log_step = global_step
-                print(f"[pretrain] step {global_step} loss {m['loss']:.4f} "
-                      f"acc {m['accuracy']:.4f} ({rate:.1f} ex/s)")
-            if _crossed(args.valid_step_interval, prev_step, global_step):
-                print(f"[pretrain] dev accuracy {validate_and_keep_best():.4f}")
-        print(f"[pretrain] epoch {epoch} dev accuracy {validate_and_keep_best():.4f}")
-        torch.save(model.state_dict(), os.path.join(args.output_dir, "last.pt"))
+    def save_state(epoch):
+        save_train_state(state_path, model, optimizer, epoch=epoch, global_step=global_step,
+                         best_acc=best_acc)
+
+    try:
+        for epoch in range(start_epoch, args.num_train_epochs):
+            for batch in train_ds.batches(args.batch_size, shuffle=True, seed=epoch,
+                                          drop_last=True):
+                prev_step = global_step
+                rng = StepRNG(fold_in(args.seed, optimizer.micro_steps), device)
+                metrics = step(rng, table, torch.from_numpy(batch.item_ids).to(device),
+                               torch.from_numpy(batch.seq_lens).to(device))
+                global_step += 1
+                if _crossed(50, prev_step, global_step):
+                    m = {k: float(v) for k, v in metrics.items()}
+                    rate = args.batch_size * (global_step - last_log_step) / (time.time() - t0)
+                    t0 = time.time()
+                    last_log_step = global_step
+                    print(f"[pretrain] step {global_step} loss {m['loss']:.4f} "
+                          f"acc {m['accuracy']:.4f} ({rate:.1f} ex/s)")
+                if _crossed(args.valid_step_interval, prev_step, global_step):
+                    print(f"[pretrain] dev accuracy {validate_and_keep_best():.4f}")
+                if preempt["signal"]:
+                    save_state(epoch)
+                    save_params(os.path.join(args.output_dir, "last.pt"), model)
+                    print(f"[pretrain] preemption checkpoint at step {global_step} (signal "
+                          f"{preempt['signal']}); restart with --resume (the interrupted epoch "
+                          "restarts from its first batch)", flush=True)
+                    return {"steps": global_step, "updates": optimizer.updates,
+                            "best_dev_accuracy": best_acc, "preempted": preempt["signal"]}
+            print(f"[pretrain] epoch {epoch} dev accuracy {validate_and_keep_best():.4f}")
+            save_params(os.path.join(args.output_dir, "last.pt"), model)
+            save_state(epoch + 1)
+    finally:
+        _restore_handlers(handlers)
     config.save(os.path.join(args.output_dir, "config.json"))
     print(f"[pretrain] done; {global_step} steps, {optimizer.updates} updates; "
           f"best dev accuracy {best_acc:.4f}")

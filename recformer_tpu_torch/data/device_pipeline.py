@@ -1,5 +1,5 @@
 """Device-side batch construction: sequence assembly, pretraining pair
-sampling and whole-word MLM.
+sampling, finetune target sampling and whole-word MLM.
 
 Counterpart of ``recformer_tpu/data/device_pipeline.py``. The host ships only
 ``(B, max_items)`` item-id arrays; the packed item table lives on the device
@@ -121,6 +121,20 @@ def pretrain_pairs_from_draws(u: torch.Tensor, seq_lens: torch.Tensor
 def sample_pretrain_pairs(generator: torch.Generator, seq_lens: torch.Tensor):
     u = torch.rand(seq_lens.shape, generator=generator, device=seq_lens.device)
     return pretrain_pairs_from_draws(u, seq_lens)
+
+
+def finetune_targets_from_draws(u: torch.Tensor, seq_lens: torch.Tensor) -> torch.Tensor:
+    """Finetune target position given uniforms ``u`` (B,): uniform over the
+    whole sequence, position 0 (an empty history) included, as the
+    reference collator does."""
+    seq_lens = seq_lens.to(torch.int32)
+    target = torch.floor(u.float() * seq_lens.float()).to(torch.int32)
+    return torch.minimum(target, seq_lens - 1)
+
+
+def sample_finetune_targets(generator: torch.Generator, seq_lens: torch.Tensor) -> torch.Tensor:
+    u = torch.rand(seq_lens.shape, generator=generator, device=seq_lens.device)
+    return finetune_targets_from_draws(u, seq_lens)
 
 
 # ---------------------------------------------------------------------------
@@ -252,3 +266,18 @@ def make_pretrain_batch(generator: torch.Generator, table, item_ids, seq_lens,
     batch_a.update(mlm_for_config(generator, batch_a, config))
     batch_b.update(mlm_for_config(generator, batch_b, config))
     return batch_a, batch_b
+
+
+def finetune_batch_from_targets(table, item_ids, target_pos, config: RecformerConfig):
+    """(batch, labels) for given target positions: the label is
+    ``item_ids[b, target]`` and the batch the history before it."""
+    labels = torch.gather(item_ids, 1, target_pos.long()[:, None])[:, 0]
+    return assemble_for_config(table, item_ids, target_pos, config), labels
+
+
+def make_finetune_batch(generator: torch.Generator, table, item_ids, seq_lens,
+                        config: RecformerConfig):
+    """Device-side finetune batch: a target over the whole sequence, then the
+    prefix view. Returns (batch, labels)."""
+    target_pos = sample_finetune_targets(generator, seq_lens)
+    return finetune_batch_from_targets(table, item_ids, target_pos, config)

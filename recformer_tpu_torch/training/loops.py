@@ -1,23 +1,27 @@
-"""Host-side orchestration of the serving path: catalog encoding and ranked
-evaluation.
+"""Host-side orchestration: catalog encoding, ranked evaluation and the
+two-stage seq-rec finetune.
 
-Counterparts of ``encode_all_items`` and ``evaluate_seqrec`` in
-``recformer_tpu/training/loops.py``. Both stream fixed-size batches through
-the model on its device and keep their results there; the host reads once
-at the end.
+Counterparts of ``encode_all_items``, ``evaluate_seqrec``,
+``train_seqrec_epoch`` and ``finetune_two_stage`` in
+``recformer_tpu/training/loops.py``. Each streams fixed-size batches
+through the model on its device and keeps its results there; the host reads
+once at the end (an epoch's loss: once per epoch).
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import RecformerConfig
-from ..data.datasets import EvalDataset
-from .steps import make_encode_items_step, make_eval_step
+from ..data.datasets import EvalDataset, SequenceDataset
+from ..utils.logging import append_jsonl
+from .checkpoint import restore_params, restore_train_state, save_params, save_train_state
+from .steps import make_encode_items_step, make_eval_step, make_finetune_step
 
 
 def _model_device(model) -> torch.device:
@@ -86,3 +90,167 @@ def evaluate_seqrec(model, table, dataset: EvalDataset, item_embeddings,
     totals = {k: float(v) for k, v in totals.items()}
     count = totals.pop("count")
     return {k: v / max(count, 1.0) for k, v in totals.items()}
+
+
+def train_seqrec_epoch(step, seed: int, table, dataset: SequenceDataset, item_embeddings,
+                       batch_size: int, epoch: int) -> float:
+    """One epoch of finetune steps over ``dataset`` shuffled with seed
+    ``epoch`` (full batches only). Returns the mean step loss, read from the
+    device once."""
+    dev = item_embeddings.device
+    losses = []
+    for batch in dataset.batches(batch_size, shuffle=True, seed=epoch, drop_last=True):
+        metrics = step(seed, table, torch.from_numpy(batch.item_ids).to(dev),
+                       torch.from_numpy(batch.seq_lens).to(dev), item_embeddings)
+        losses.append(metrics["loss"])
+    if not losses:
+        return 0.0
+    return float(torch.stack(losses).double().mean())
+
+
+def finetune_two_stage(
+    model,
+    optimizer,
+    table,
+    config: RecformerConfig,
+    train_dataset: SequenceDataset,
+    val_dataset: EvalDataset,
+    test_dataset: EvalDataset,
+    *,
+    num_epochs: int = 16,
+    batch_size: int = 16,
+    eval_batch_size: int = 32,
+    encode_batch_size: int = 256,
+    verbose: int = 3,
+    seed: int = 42,
+    encode_cache: Optional[str] = None,
+    resume_dir: Optional[str] = None,
+    mirror_path: Optional[str] = None,
+    log: Callable = print,
+) -> Tuple[object, torch.Tensor, Dict[str, float]]:
+    """The reference two-stage schedule, as the JAX package runs it.
+
+    Stage 1: every epoch re-encodes the catalog from the current encoder,
+    then trains; every ``verbose`` epochs the dev split is ranked, NDCG@10
+    selects, patience 5. Stage 2: the stage-1 best parameters come back
+    with the catalog snapshotted beside them, that catalog stays frozen,
+    patience 3 (the optimizer's state carries over, as the JAX TrainState's
+    does). The test split is ranked against the selected parameters' own
+    catalog, with no re-encode. Returns (model with the selected
+    parameters, that catalog, test metrics).
+
+    ``resume_dir``: after each epoch's update (and at the stage-1 -> 2
+    switch, marked ``epoch = -1``) it receives ``loop.json`` (position,
+    best NDCG@10, patience, catalog dtype), ``state.pt`` (the train
+    state), ``best_params.pt`` and ``best_emb.npy`` (the best so far) and
+    ``frozen_emb.npy`` (stage 2's catalog). A run that finds them continues
+    from the first unfinished epoch, and draws what the uninterrupted run
+    would have: shuffles are seeded by the epoch, a step's draws by
+    ``(seed, micro-step)``.
+
+    ``mirror_path``: an append-only JSONL that receives every dev row and
+    the test row as they are produced (fsync'd)."""
+    step = make_finetune_step(config, model, optimizer)
+    dev = next(model.parameters()).device
+
+    def encode(cache=None):
+        return encode_all_items(model, table, config, encode_batch_size, cache_path=cache)
+
+    def evaluate(dataset, item_embeddings):
+        return evaluate_seqrec(model, table, dataset, item_embeddings, config, eval_batch_size)
+
+    best_target = float("-inf")
+    best_params = best_emb = None  # the catalog is snapshotted WITH the params
+    item_embeddings = None
+    start_stage, start_epoch, patience = 1, 0, 5
+    loop_meta = os.path.join(resume_dir, "loop.json") if resume_dir else None
+    if loop_meta and os.path.exists(loop_meta):
+        with open(loop_meta) as f:
+            meta = json.load(f)
+        restore_train_state(os.path.join(resume_dir, "state.pt"), model, optimizer)
+        best_target, patience = meta["best_target"], meta["patience"]
+        start_stage, start_epoch = meta["stage"], meta["epoch"] + 1
+        if os.path.exists(os.path.join(resume_dir, "best_params.pt")):
+            best_params = {k: v.to(dev) for k, v in restore_params(
+                os.path.join(resume_dir, "best_params.pt")).items()}
+            best_emb = torch.from_numpy(np.load(os.path.join(resume_dir, "best_emb.npy"))).to(dev)
+        if start_stage == 2:
+            item_embeddings = torch.from_numpy(
+                np.load(os.path.join(resume_dir, "frozen_emb.npy"))).to(
+                dev, getattr(torch, meta["emb_dtype"]))
+        log(f"[finetune] resumed at stage {start_stage} epoch {start_epoch} "
+            f"(best NDCG@10 {best_target:.4f}, patience {patience})")
+
+    def checkpoint(stage, epoch, improved):
+        """The rolling checkpoint, written after the epoch's update (after
+        the switch, for the stage-2 ``epoch = -1`` marker), so a resume
+        restores exactly the position recorded."""
+        if not resume_dir:
+            return
+        save_train_state(os.path.join(resume_dir, "state.pt"), model, optimizer)
+        if improved:
+            save_params(os.path.join(resume_dir, "best_params.pt"), best_params)
+            np.save(os.path.join(resume_dir, "best_emb.npy"), best_emb.cpu().numpy())
+        frozen = os.path.join(resume_dir, "frozen_emb.npy")
+        if stage == 2 and not os.path.exists(frozen):  # saved once, at the switch
+            np.save(frozen, item_embeddings.float().cpu().numpy())
+        with open(loop_meta, "w") as f:
+            json.dump({"stage": stage, "epoch": epoch, "best_target": best_target,
+                       "patience": patience,
+                       "emb_dtype": str(item_embeddings.dtype).removeprefix("torch.")}, f)
+
+    def train_and_select(stage, epoch, shuffle_seed, reset_patience):
+        """One epoch, then (every ``verbose`` epochs) the dev ranking;
+        returns whether NDCG@10 improved."""
+        nonlocal best_target, best_params, best_emb, patience
+        loss = train_seqrec_epoch(step, seed, table, train_dataset, item_embeddings,
+                                  batch_size, shuffle_seed)
+        if (epoch + 1) % verbose:
+            return False
+        dev_metrics = evaluate(val_dataset, item_embeddings)
+        log(f"[stage{stage}] epoch {epoch} loss {loss:.4f} dev {dev_metrics}")
+        append_jsonl(mirror_path, {"event": "dev", "stage": stage, "epoch": epoch,
+                                   "loss": loss, **dev_metrics})
+        if dev_metrics["NDCG@10"] > best_target:
+            best_target = dev_metrics["NDCG@10"]
+            best_params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            best_emb = item_embeddings.float().clone()
+            patience = reset_patience
+            return True
+        patience -= 1
+        return False
+
+    if start_stage == 1:
+        if start_epoch == 0:
+            # the initial encode is the one cached between launches; the
+            # per-epoch re-encodes see fresh parameters every time
+            item_embeddings = encode(cache=encode_cache)
+        for epoch in range(start_epoch, num_epochs):
+            item_embeddings = encode()
+            improved = train_and_select(1, epoch, epoch, 5)
+            checkpoint(1, epoch, improved)
+            if patience == 0:
+                break
+        if best_params is not None:
+            model.load_state_dict(best_params)
+            item_embeddings = best_emb
+        elif item_embeddings is None:  # resumed after the last stage-1 epoch
+            item_embeddings = encode()
+        # stage 2 keeps this catalog frozen through training, selection, test
+        patience, start_epoch = 3, 0
+        checkpoint(2, -1, improved=False)
+
+    for epoch in range(start_epoch, num_epochs):
+        improved = train_and_select(2, epoch, num_epochs + epoch, 3)
+        checkpoint(2, epoch, improved)
+        if patience == 0:
+            break
+
+    if best_params is not None:
+        model.load_state_dict(best_params)
+        item_embeddings = best_emb
+    # no re-encode: the test ranks against the catalog the selected
+    # parameters were trained with
+    test_metrics = evaluate(test_dataset, item_embeddings)
+    append_jsonl(mirror_path, {"event": "test", **test_metrics})
+    return model, item_embeddings, test_metrics

@@ -1,6 +1,8 @@
-"""Pretraining losses, in float32 whatever the compute type.
+"""Pretraining and sequential-recommendation losses, in float32 whatever
+the compute type.
 
-Counterparts of ``IGNORE_INDEX``, ``info_nce_loss`` and ``mlm_loss`` in
+Counterparts of ``IGNORE_INDEX``, ``info_nce_loss``, ``mlm_loss``,
+``seqrec_full_softmax_loss`` and ``seqrec_sampled_softmax_loss`` in
 ``recformer_tpu/training/losses.py``, on one device (the JAX package's
 ``axis_name=None``): the cross-device gather of the contrastive negatives
 comes with the parallel slice.
@@ -13,8 +15,10 @@ from typing import Tuple
 import torch
 
 from ..data.device_pipeline import IGNORE_INDEX
+from ..models.heads import similarity_scores
 
-__all__ = ["IGNORE_INDEX", "info_nce_loss", "mlm_loss"]
+__all__ = ["IGNORE_INDEX", "info_nce_loss", "mlm_loss", "seqrec_full_softmax_loss",
+           "seqrec_sampled_softmax_loss", "seqrec_sampled_softmax_loss_from_negatives"]
 
 
 def _l2norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -46,3 +50,34 @@ def mlm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     picked = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, lse - picked, 0.0)
     return nll.sum() / valid.sum().clamp_min(1)
+
+
+def seqrec_full_softmax_loss(pooled: torch.Tensor, item_embeddings: torch.Tensor,
+                             labels: torch.Tensor, temp: float) -> torch.Tensor:
+    """Cross-entropy of the label over the whole ``(N, H)`` catalog, in the
+    logsumexp-gather form."""
+    logits = similarity_scores(pooled.float(), item_embeddings.float(), temp)
+    picked = torch.gather(logits, 1, labels.long()[:, None])[:, 0]
+    return (torch.logsumexp(logits, dim=-1) - picked).mean()
+
+
+def seqrec_sampled_softmax_loss_from_negatives(pooled: torch.Tensor,
+                                               item_embeddings: torch.Tensor,
+                                               labels: torch.Tensor, temp: float,
+                                               negatives: torch.Tensor) -> torch.Tensor:
+    """Sampled softmax given the negatives ``(B, n)``: the label is candidate
+    0, the negatives follow; a negative may equal the label."""
+    candidates = torch.cat([labels.long()[:, None], negatives.long()], dim=1)  # (B, 1+n)
+    logits = similarity_scores(pooled.float(), item_embeddings[candidates].float(), temp)
+    return -torch.log_softmax(logits, dim=-1)[:, 0].mean()
+
+
+def seqrec_sampled_softmax_loss(pooled, item_embeddings, labels, temp: float,
+                                num_negatives: int, generator: torch.Generator):
+    """Sampled softmax with ``num_negatives`` negatives drawn uniformly over
+    the catalog from ``generator``: collisions with the label are kept, as
+    the reference keeps them."""
+    negatives = torch.randint(0, item_embeddings.shape[0], (labels.shape[0], num_negatives),
+                              generator=generator, device=labels.device)
+    return seqrec_sampled_softmax_loss_from_negatives(pooled, item_embeddings, labels, temp,
+                                                      negatives)

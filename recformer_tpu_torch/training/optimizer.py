@@ -15,7 +15,10 @@ Counterpart of ``recformer_tpu/training/optimizer.py``, matched term by term:
 - with ``grad_accum_steps = k`` the gradients of k micro-steps are averaged
   with ``optax.MultiSteps``' running mean and one update is taken;
 - ``head_lr`` puts the parameters outside the backbone (``longformer.*``) in
-  groups of their own at that rate, with the same schedule shape.
+  groups of their own at that rate, with the same schedule shape;
+- :meth:`AdamWSchedule.state_dict` holds everything a restore needs to go on
+  exactly, in the middle of an accumulation cycle too: the Adam moments,
+  the schedule's position, the accumulated gradient and the counters.
 
 The clip factor stays a device tensor, so a step does not wait on the host.
 """
@@ -85,6 +88,26 @@ class AdamWSchedule:
         self.mini_step = 0
         self.updates = 0
         self._acc: List[torch.Tensor] | None = None
+
+    @property
+    def micro_steps(self) -> int:
+        """Calls of :meth:`step` so far: the JAX TrainState's ``step``."""
+        return self.updates * self.k + self.mini_step
+
+    def state_dict(self) -> dict:
+        return {"optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict(),
+                "acc": None if self._acc is None else [a.detach().clone() for a in self._acc],
+                "mini_step": self.mini_step, "updates": self.updates}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+        acc = state["acc"]
+        self._acc = None if acc is None else [a.to(p.device, p.dtype).clone()
+                                              for a, p in zip(acc, self.params)]
+        self.mini_step = int(state["mini_step"])
+        self.updates = int(state["updates"])
 
     def _grads(self) -> List[torch.Tensor]:
         return [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]

@@ -1,8 +1,8 @@
-"""Training and serving steps: pretraining, ranked evaluation, item
-encoding.
+"""Training and serving steps: pretraining, seq-rec finetuning, ranked
+evaluation, item encoding.
 
 Counterparts of ``make_pretrain_step``, ``make_pretrain_eval_step``,
-``make_eval_step`` and ``make_encode_items_step`` in
+``make_finetune_step``, ``make_eval_step`` and ``make_encode_items_step`` in
 ``recformer_tpu/training/steps.py``, single device, as plain functions over a
 model that holds its parameters. Batch construction runs on the model's
 device inside the step; the host ships item-id arrays only. Metrics come
@@ -17,8 +17,9 @@ from typing import Dict, Sequence
 import torch
 
 from ..config import RecformerConfig
-from ..data.device_pipeline import assemble_for_config, make_pretrain_batch
+from ..data.device_pipeline import assemble_for_config, make_finetune_batch, make_pretrain_batch
 from ..models.heads import similarity_scores
+from ..utils.rng import StepRNG, fold_in
 from . import losses
 from .metrics import MAX_VAL, rank_from_scores
 
@@ -70,6 +71,40 @@ def make_pretrain_eval_step(config: RecformerConfig, model):
         loss, metrics = pretrain_loss(config, out, batch_a, batch_b)
         return {"val_loss": loss, "cl_correct": metrics["cl_correct"],
                 "cl_total": metrics["cl_total"]}
+
+    return step
+
+
+def finetune_loss(config: RecformerConfig, pooled, item_embeddings, labels, generator):
+    """Sampled softmax over ``finetune_negative_sample_size`` negatives drawn
+    from ``generator`` when that size is positive, else the full softmax
+    over the catalog."""
+    if config.finetune_negative_sample_size > 0:
+        return losses.seqrec_sampled_softmax_loss(
+            pooled, item_embeddings, labels, config.temp,
+            config.finetune_negative_sample_size, generator)
+    return losses.seqrec_full_softmax_loss(pooled, item_embeddings, labels, config.temp)
+
+
+def make_finetune_step(config: RecformerConfig, model, optimizer):
+    """step(seed, table, item_ids, seq_lens, item_embeddings) -> {loss}: a
+    target per row over the whole sequence, the prefix batch on the device,
+    the sequence tower with dropout, the loss against the frozen catalog
+    ``item_embeddings``, its backward and one optimizer micro-step.
+
+    Every draw of the step (targets, dropout, negatives) comes from a
+    :class:`StepRNG` seeded with ``fold_in(seed, micro-step)``, as JAX folds
+    ``state.step`` into its key: a run resumed from a saved train state
+    draws what the uninterrupted run drew."""
+
+    def step(seed, table, item_ids, seq_lens, item_embeddings) -> Dict[str, torch.Tensor]:
+        rng = StepRNG(fold_in(seed, optimizer.micro_steps), item_ids.device)
+        batch, labels = make_finetune_batch(rng.device, table, item_ids, seq_lens, config)
+        pooled = model(batch, deterministic=False, rng=rng)
+        loss = finetune_loss(config, pooled, item_embeddings, labels, rng.device)
+        loss.backward()
+        optimizer.step()
+        return {"loss": loss.detach()}
 
     return step
 

@@ -6,11 +6,28 @@ plain PyTorch draws (hidden-state, embedding and global-row dropout, MLM and
 pair sampling), and one on the CPU for the attention kernels' dropout seeds,
 which the wrapper passes to the kernel as an integer without a device sync.
 On the CPU the two are one generator.
+
+A step whose draws must not depend on what ran before it (so that a resumed
+run draws what the uninterrupted run drew) makes its ``StepRNG`` from
+``fold_in(seed, step)``, as JAX folds the step into its key.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(seed: int, step: int) -> int:
+    """A 63-bit seed from ``(seed, step)``: splitmix64 of the two packed in
+    one word, so neighbouring steps get unrelated streams."""
+    z = (((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)) + 0x9E3779B97F4A7C15
+    z &= _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
 
 
 class StepRNG:

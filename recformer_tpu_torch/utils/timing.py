@@ -1,6 +1,7 @@
 """Timing on the card: device time per call from a CUDA graph, host time
-per call, and the card's name and power limit. Used by the probes' entry
-points and by ``chip_smoke.py``."""
+per call, the device's busy time in a profiler trace, and the card's name
+and power limit. Used by the probes' entry points, ``chip_smoke.py`` and
+the profile scripts."""
 
 from __future__ import annotations
 
@@ -64,3 +65,20 @@ def host_ms(fn, n: int = 25, warmup: int = 3) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / n * 1e3
+
+
+def busy_ms(kernels) -> float:
+    """Union of the device kernels' [start, end) intervals (``torch.profiler``
+    events), in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3  # us -> ms

@@ -28,22 +28,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import device_kernels, synthetic_table  # noqa: E402
-
-
-def busy_ms(kernels) -> float:
-    """Union of the device kernels' [start, end) intervals, in ms."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total / 1e3  # us -> ms
+from recformer_tpu_torch.utils.timing import busy_ms  # noqa: E402
 
 
 def profile(name, fn, top=15, groups=None, per=1):

@@ -21,7 +21,8 @@ def test_importing_every_module_loads_no_jax():
     mods = port_modules()
     for name in ("ops.window_attention", "ops.layernorm", "ops.embed_layernorm",
                  "ops.band_probes", "benchmarks.kernel_ablation", "benchmarks.headpair_probe",
-                 "cli.encode_items", "cli.evaluate_seq", "utils.timing"):
+                 "cli.encode_items", "cli.evaluate_seq", "utils.timing", "cli.finetune",
+                 "training.checkpoint", "utils.logging"):
         assert f"recformer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -46,13 +47,14 @@ def test_sources_name_no_jax():
                if f.endswith((".py", ".cu", ".cuh")) and "_build" not in d.split(os.sep)]
     sources += [os.path.join(REPO, p) for p in (
         "chip_smoke.py", "scripts/profile_torch_serving.py", "scripts/profile_torch_pretrain.py",
-        "scripts/profile_torch_ln_bwd.py")]
+        "scripts/profile_torch_ln_bwd.py", "scripts/profile_torch_finetune.py")]
     assert len(sources) > 20
     names = {os.path.basename(p) for p in sources}
     assert {"embed_layernorm.cu", "layernorm_bwd.cu", "row_reduce.cuh", "layernorm.py",
             "embed_layernorm.py", "band_mma.cuh", "band_probes.cu", "band_probes.py",
             "kernel_ablation.py", "headpair_probe.py", "encode_items.py", "evaluate_seq.py",
-            "timing.py"} <= names
+            "timing.py", "finetune.py", "checkpoint.py", "logging.py",
+            "profile_torch_finetune.py"} <= names
     for path in sources:
         with open(path) as f:
             text = f.read()
