@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, pretraining and finetuning paths once on one CUDA card.
+"""Drive the PyTorch port's serving, pretraining, finetuning and fraud paths once on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -96,14 +96,40 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     launches as the code says (encodes, train steps, dev and test ranking);
     then a run stopped at its first stage-2 dev row and continued with
     ``--resume``: the restored parameters equal the saved train state bit
-    for bit, and it resumes at stage 2 epoch 0.
+    for bit, and it resumes at stage 2 epoch 0;
+16. fraud_corpus: ``pipelines.synthetic_transactions --scale small --build``
+    (400 + 100 cards of 5-60 transactions, fraud bursts planted);
+    fraud_step: 20 base-width fraud steps at batch 16 over its
+    classification split's cards with their labels (histories of 5-65
+    items, the view at (16, 1024)), dropout 0.1 and the head's 0.2,
+    ``pos_weight`` from the split, the head at 1e-3: steps/s, examples/s,
+    peak memory, one profiled step, 12 + 12 attention launches a step, all
+    on the tensor cores; then 20 steps on one fixed batch (half fraudulent)
+    with every dropout off, whose loss must fall;
+17. fraud_vs_chunked: the float32 gradients of one fraud loss through the
+    attention kernels against the chunked twin (the gate of 11 over the
+    backbone's gradients, the cosine of all of them, each head tensor within
+    1e-3 relative, the logits within 1e-3);
+18. convert_ckpt: pretrain_cli's ``best.pt`` through ``cli.convert_ckpt
+    --model_size base``: every backbone tensor of ``recformer.pt``,
+    ``seqrec.pt`` and ``fraud.pt`` bit-equal to the source, the fraud head
+    the seeded initialiser's; ``seqrec.pt`` into ``cli.finetune
+    --pretrain_ckpt`` (every tensor copied) for one epoch a stage;
+19. fraud_cli, fraud_cli_resume: ``cli.finetune_classification --model_size
+    base --device cuda --pretrain_ckpt fraud.pt`` (every tensor copied) on
+    the corpus, 2 epochs at batch 16, sweeps at 32, ``--head_lr 1e-3``:
+    kernel 1 and 2 launches as the code says (train steps, dev and test
+    sweeps), the outputs written; then a run that dies at its second dev
+    sweep and is continued with ``--resume``: the restored parameters equal
+    the saved train state bit for bit, and its test metrics equal the
+    uninterrupted run's.
 
 Launch counts, set to 0 just before each path and read just after, show that
 the paths ran the kernels (each kernel on its path at least once; the
 probes' path is probe_time), as many times as the code says they must (the
 attention kernels' tensor-core launches among them: every forward of
 serving, all 24 forwards and 24 backwards of a bf16 pretraining step and
-the 12 and 12 of a finetune step). Then the command time, the kernels line,
+the 12 and 12 of a finetune or fraud step). Then the command time, the kernels line,
 the card line and, last, the result line. Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
 result.
@@ -116,6 +142,7 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import sys
 import tempfile
@@ -124,6 +151,7 @@ import time
 import numpy as np
 import torch
 
+from recformer_tpu_torch.utils.io import read_json
 from recformer_tpu_torch.utils.timing import busy_ms, capture, card_line, graph_launch_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -1466,7 +1494,7 @@ def run_pretrain_ln_kernels_vs_plain(seed):
 # ---------------------------------------------------------------------------
 
 def finetune_launches_per_step(cfg) -> dict:
-    """Launches of each kernel one finetune step makes, by reading the code:
+    """Launches of each kernel one finetune or fraud step makes, by reading the code:
     the sequence tower's forward and backward, the attention kernels once
     per layer each (on the tensor cores in bf16 at the base head width and
     window), no other kernel."""
@@ -1784,10 +1812,10 @@ def run_encode_embed_kernel(seed, card):
     return counts
 
 
-def run_pretrain_cli(seed, phase="pretrain_cli", extra=()):
+def run_pretrain_cli(seed, phase="pretrain_cli", extra=(), keep=None):
     """``cli.pretrain --model_size base --device cuda`` (plus ``extra``) on a
     small corpus: one epoch with accumulation 2, dev validation, best and
-    last saved."""
+    last saved; ``best.pt`` is copied into the directory ``keep`` if given."""
     from recformer_tpu_torch.cli import pretrain
     from recformer_tpu_torch.config import RecformerConfig
 
@@ -1808,6 +1836,8 @@ def run_pretrain_cli(seed, phase="pretrain_cli", extra=()):
         written = sorted(os.listdir(out_dir))
         topk = sorted(os.listdir(os.path.join(out_dir, "topk")))
         cfg = RecformerConfig.load(os.path.join(out_dir, "config.json"))
+        if keep:
+            shutil.copy(os.path.join(out_dir, "best.pt"), keep)
     per_step = launches_per_step(cfg)
     # every step runs forward and backward; the one dev validation runs the
     # two towers' forward once more
@@ -1892,6 +1922,405 @@ def run_pretrain_preemption(seed):
                              f"launches {counts} (expected {expected})")
     return counts
 
+# ---------------------------------------------------------------------------
+# the fraud path and checkpoint conversion at full base width
+# ---------------------------------------------------------------------------
+
+def build_fraud_corpus(root, seed):
+    """``pipelines.synthetic_transactions --scale small --build`` under
+    ``root`` (400 + 100 cards of 5-60 transactions and their fraud bursts);
+    returns its ``classification_data/`` directory."""
+    from recformer_tpu_torch.pipelines import synthetic_transactions
+
+    synthetic_transactions.main(["--out", root, "--scale", "small", "--seed", str(11 + seed),
+                                 "--build"])
+    return os.path.join(root, "artifacts", "classification_data")
+
+
+def fraud_world(data, **cfg_kw):
+    """The classification split's training cards as the fraud CLI reads
+    them: the base config with the split's ``pos_weight``, the tokenized
+    item table on the card (no cache) and the training ``FraudDataset``."""
+    from recformer_tpu_torch.cli.common import make_tokenizer, table_to_device
+    from recformer_tpu_torch.cli.finetune_classification import calculate_pos_weight
+    from recformer_tpu_torch.config import RecformerConfig
+    from recformer_tpu_torch.data.datasets import FraudDataset
+
+    train = read_json(os.path.join(data, "train.json"), as_int=True)
+    meta = read_json(os.path.join(data, "meta_data.json"))
+    item2id = read_json(os.path.join(data, "smap.json"))
+    ds = FraudDataset(train, max_items=max(len(v[0]) for v in train.values()))
+    cfg = RecformerConfig.base(item_num=len(item2id), pos_weight=calculate_pos_weight(ds),
+                               **cfg_kw)
+    table = table_to_device(make_tokenizer(cfg).encode_corpus_table(meta, item2id), "cuda")
+    return cfg, table, ds
+
+
+def _on_card(b):
+    return tuple(torch.from_numpy(a).cuda() for a in (b.item_ids, b.seq_lens, b.labels,
+                                                       b.valid))
+
+
+def fraud_batches(ds, n, seed=0):
+    """``n`` training batches of 16 from shuffled passes over ``ds``, on the
+    card: (item_ids, seq_lens, labels, valid)."""
+    out = []
+    while len(out) < n:
+        out += [_on_card(b) for b in ds.batches(16, shuffle=True, seed=seed + len(out))]
+    return out[:n]
+
+
+def mixed_fraud_batch(ds):
+    """One batch of 16 of ``ds``'s cards, half of them (at most) fraudulent,
+    on the card."""
+    from recformer_tpu_torch.data.datasets import FraudDataset
+
+    pos = [i for i, y in enumerate(ds.labels) if y][:8]
+    neg = [i for i, y in enumerate(ds.labels) if not y][:16 - len(pos)]
+    sub = {j: [ds.seqs[i], [ds.labels[i]]] for j, i in enumerate(pos + neg)}
+    return _on_card(next(FraudDataset(sub, ds.max_items).batches(16)))
+
+
+def run_fraud_step(seed, card, data):
+    """20 timed base-width fraud steps (after 2 warm-up steps) at batch 16
+    over the corpus's training cards with their labels, dropout 0.1 (and
+    the head's 0.2), ``pos_weight`` from the split, the head at 1e-3:
+    steps/s, examples/s, peak memory, one profiled step, 12 + 12 attention
+    launches a step, all on the tensor cores; then 20 steps on one fixed
+    batch with every dropout off, whose loss must fall."""
+    from recformer_tpu_torch.cli.common import init_model_params
+    from recformer_tpu_torch.data.device_pipeline import assemble_for_config
+    from recformer_tpu_torch.models.heads import RecformerForFraudDetection
+    from recformer_tpu_torch.training.optimizer import create_optimizer
+    from recformer_tpu_torch.training.steps import fraud_loss, make_fraud_train_step
+
+    cfg, table, ds = fraud_world(data)
+    assert cfg.attention_probs_dropout_prob == 0.1 and cfg.compute_dtype == torch.bfloat16
+    B, n = 16, 20
+    batches = fraud_batches(ds, n + 2, seed)
+    model = init_model_params(RecformerForFraudDetection(cfg), cfg, device="cuda", seed=seed)
+    opt = create_optimizer(model, learning_rate=5e-5, warmup_steps=100, total_steps=10_000,
+                           head_lr=1e-3)
+    step = make_fraud_train_step(cfg, model, opt)
+    for b in batches[:2]:
+        step(seed, table, *b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = [step(seed, table, *b) for b in batches[2:]]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    expected = finetune_launches_per_step(cfg)
+    prof = profile_call(lambda: step(seed, table, *batches[2]))
+    positives = sum(int(b[2].sum()) for b in batches[2:])
+    lens = torch.cat([b[1][b[3]] for b in batches[2:]])
+    ok = (all(counts[k] == expected[k] * n for k in COUNTERS)
+          and all(math.isfinite(x) for x in losses))
+    emit("fraud_step", config=f"RecformerConfig.base(pos_weight={cfg.pos_weight!r})",
+         batch=B, view=[B, cfg.max_token_num], cards=len(ds), positives_in_timed_batches=positives,
+         history_items=[int(lens.min()), int(lens.max())], steps=n, seconds=secs,
+         steps_per_s=n / secs, examples_per_s=B * n / secs, peak_memory_gib=peak / 2 ** 30,
+         profiled_step=prof, launches_per_step={k: counts[k] / n for k in COUNTERS},
+         expected_per_step=expected, loss_first=losses[0], loss_last=losses[-1], card=card,
+         ok=ok)
+    if not ok:
+        raise AssertionError(f"fraud_step: launches {counts} over {n} steps (expected "
+                             f"{expected} each step), losses {losses}")
+    del model, opt, step
+
+    model0 = init_model_params(RecformerForFraudDetection(cfg), cfg, device="cuda", seed=seed)
+    opt0 = create_optimizer(model0, learning_rate=1e-4, warmup_steps=2, total_steps=100,
+                            head_lr=1e-3)
+    ids, lens, labels, valid = mixed_fraud_batch(ds)
+    batch = assemble_for_config(table, ids, lens, cfg)
+    fixed = []
+    for _ in range(20):
+        loss = fraud_loss(cfg, model0(batch), labels, valid)  # deterministic: no dropout
+        loss.backward()
+        opt0.step()
+        fixed.append(float(loss.detach()))
+    falls = all(math.isfinite(x) for x in fixed) and np.mean(fixed[-3:]) < np.mean(fixed[:3])
+    emit("fraud_step_fixed_batch", steps=20, dropout=0.0, positives=int(labels.sum()),
+         losses=fixed, falls=bool(falls), ok=bool(falls))
+    if not falls:
+        raise AssertionError(f"fraud_step_fixed_batch: loss did not fall: {fixed}")
+    del model0, opt0
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_fraud_vs_chunked(seed, data):
+    """The float32 gradients of one deterministic fraud loss (16 of the
+    corpus's cards, half fraudulent, ``pos_weight`` from the split) through
+    the attention kernels against the plain chunked attention, from the
+    same weights: the gate of pretrain_vs_chunked over the backbone's
+    gradients (at the initializer's scale the head's three layers shrink
+    the backbone's gradients to about 1e-10 of the head's squared norm, so
+    shares are taken within the backbone), the cosine of all gradients
+    > 0.999, each head tensor within 1e-3 relative, and the logits within
+    1e-3."""
+    from recformer_tpu_torch.cli.common import init_model_params
+    from recformer_tpu_torch.data.device_pipeline import assemble_for_config
+    from recformer_tpu_torch.models.heads import RecformerForFraudDetection
+    from recformer_tpu_torch.training.steps import fraud_loss
+
+    cfg, table, ds = fraud_world(data, dtype="float32")
+    ids, lens, labels, valid = mixed_fraud_batch(ds)
+    batch = assemble_for_config(table, ids, lens, cfg)
+    model = init_model_params(RecformerForFraudDetection(cfg), cfg, device="cuda", seed=seed)
+    state = {n: t.clone() for n, t in model.state_dict().items()}
+    del model
+
+    def grads(impl):
+        c = cfg.replace(attention_impl=impl)
+        model = RecformerForFraudDetection(c).to("cuda")
+        model.load_state_dict(state)
+        logits = model(batch)
+        loss = fraud_loss(c, logits, labels, valid)
+        loss.backward()
+        return ({n: p.grad.float() for n, p in model.named_parameters()}, float(loss.detach()),
+                logits.detach())
+
+    (ga, loss_k, logits_k), (gb, loss_c, logits_c) = grads("pallas"), grads("chunked")
+    logits_err = float((logits_k - logits_c).abs().max())
+    head = [n for n in ga if not n.startswith("longformer.")]
+    head_a, head_b = {n: ga.pop(n) for n in head}, {n: gb.pop(n) for n in head}
+    all_cos = float(torch.nn.functional.cosine_similarity(
+        torch.cat([g.flatten() for g in (*ga.values(), *head_a.values())]),
+        torch.cat([g.flatten() for g in (*gb.values(), *head_b.values())]), dim=0))
+    head_rel = {n: float((head_a[n] - head_b[n]).norm() / head_b[n].norm().clamp_min(1e-30))
+                for n in head}
+    cos, share, rel = grad_stats(ga, gb)
+    ok = all_cos > 0.999 and max(head_rel.values()) <= 1e-3 and logits_err <= 1e-3
+    gate_grads("fraud_vs_chunked", ATTN_PROJ, 4 * cfg.num_hidden_layers, cos, share, rel,
+               loss_kernel=loss_k, loss_chunked=loss_c, all_grad_cosine=all_cos,
+               head_rel_err=head_rel, max_logit_abs_err=logits_err,
+               positives=int(labels.sum()), head_ok=ok)
+    if not ok:
+        raise AssertionError(f"fraud_vs_chunked: cosine of all gradients {all_cos}, head "
+                             f"{head_rel}, logits differ by {logits_err}")
+
+
+class _MergeRecord(list):
+    """Wraps ``cli.common.merge_params`` (the CLIs' one loader) and records,
+    for each load, the names copied, skipped and the model's own."""
+
+    def __enter__(self):
+        from recformer_tpu_torch.cli import common
+
+        self.common, self.real = common, common.merge_params
+
+        def recording(source, model, verbose=True):
+            copied, skipped = self.real(source, model, verbose)
+            self.append((sorted(copied), skipped, sorted(model.state_dict())))
+            return copied, skipped
+
+        common.merge_params = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.common.merge_params = self.real
+
+    def all_copied(self) -> bool:
+        return len(self) == 1 and self[0][0] == self[0][2] and not self[0][1]
+
+
+def run_convert_ckpt(seed, card, best_pt, out):
+    """``cli.convert_ckpt --model_size base`` on ``cli.pretrain``'s
+    ``best.pt``: every backbone tensor of ``recformer.pt``, ``seqrec.pt`` and
+    ``fraud.pt`` bit-equal to the source, the fraud head the seeded
+    initialiser's; then ``seqrec.pt`` into ``cli.finetune --pretrain_ckpt``
+    for one short epoch a stage (256 items, 32 users), every tensor copied,
+    kernels 1 and 2 launched as the code says. Returns those launches."""
+    from recformer_tpu_torch.cli import convert_ckpt, finetune
+    from recformer_tpu_torch.cli.common import init_model_params
+    from recformer_tpu_torch.config import RecformerConfig
+    from recformer_tpu_torch.models.heads import RecformerForFraudDetection
+    from recformer_tpu_torch.training.checkpoint import load_torch_checkpoint, restore_params
+
+    t0 = time.perf_counter()
+    convert_ckpt.main(["--pretrain_ckpt", best_pt, "--output_dir", out, "--model_size",
+                       "base", "--device", "cuda"])
+    secs = time.perf_counter() - t0
+    src = {k: v for k, v in load_torch_checkpoint(best_pt).items()
+           if k.startswith("longformer.")}
+    outputs = {n: restore_params(os.path.join(out, f"{n}.pt"))
+               for n in ("recformer", "seqrec", "fraud")}
+    equal = {}
+    for name, sd in outputs.items():
+        prefix = "" if name == "recformer" else "longformer."
+        equal[name] = all(torch.equal(sd[prefix + k.removeprefix("longformer.")], v)
+                          for k, v in src.items())
+    cfg = RecformerConfig.base()
+    fresh = init_model_params(RecformerForFraudDetection(cfg), cfg, device="cuda").state_dict()
+    head = [k for k in outputs["fraud"] if k.startswith("fc")]
+    head_seeded = all(torch.equal(outputs["fraud"][k], fresh[k].cpu()) for k in head)
+    del fresh
+
+    n_items, n_users, bs, enc_bs, eval_bs = 256, 32, 16, 256, 32
+    layers, steps = cfg.num_hidden_layers, n_users // bs
+    with tempfile.TemporaryDirectory() as tmp, _MergeRecord() as loads:
+        write_corpus(tmp, n_items=n_items, n_users=n_users, seed=seed + 1, hist=(16, 51))
+        reset_counts()
+        metrics = finetune.main(["--data_path", tmp, "--output_dir", os.path.join(tmp, "out"),
+                                 "--model_size", "base", "--device", "cuda",
+                                 "--num_train_epochs", "1", "--verbose", "1", "--batch_size",
+                                 str(bs), "--gradient_accumulation_steps", "2", "--seed",
+                                 str(seed), "--pretrain_ckpt", os.path.join(out, "seqrec.pt")])
+        torch.cuda.synchronize()
+        counts = read_counts()
+    fw = 2 * math.ceil(n_items / enc_bs) + 2 * steps + 3 * math.ceil(n_users / eval_bs)
+    expected = {**{k: 0 for k in COUNTERS}, "band_attention_fwd": layers * fw,
+                "band_attention_fwd_tc": layers * fw, "band_attention_bwd": layers * 2 * steps,
+                "band_attention_bwd_tc": layers * 2 * steps}
+    ok = (all(equal.values()) and len(src) == len(outputs["recformer"]) and len(head) == 6
+          and head_seeded and loads.all_copied() and counts == expected
+          and all(math.isfinite(v) for v in metrics.values()))
+    emit("convert_ckpt", seconds=secs, source_backbone_tensors=len(src),
+         tensors_written={n: len(sd) for n, sd in outputs.items()},
+         backbone_bit_equal=equal, fraud_head_seeded=head_seeded,
+         seqrec_into_finetune={"copied": len(loads[0][0]) if loads else 0,
+                               "skipped": loads[0][1] if loads else None,
+                               "test_metrics": metrics},
+         launches=counts, expected_launches=expected, card=card, ok=ok)
+    if not ok:
+        raise AssertionError(f"convert_ckpt: backbone equal {equal}, head seeded "
+                             f"{head_seeded}, loads {[(len(a), b) for a, b, _ in loads]}, "
+                             f"launches {counts} (expected {expected}), metrics {metrics}")
+    return counts
+
+
+def run_fraud_cli(seed, card, data, fraud_pt):
+    """``cli.finetune_classification --model_size base --device cuda`` on the
+    corpus's classification split, from ``cli.convert_ckpt``'s ``fraud.pt``
+    (every backbone and head tensor copied): 2 epochs at batch 16, dev and
+    test sweeps at 32, the head at 1e-3. Kernels 1 and 2 launched as the
+    code says (train steps, dev sweeps, the test sweep), the outputs
+    written, finite metrics. Then a second run dies at its second dev sweep
+    (after epoch 0 was checkpointed) and is continued with ``--resume``:
+    the restored parameters equal the saved train state bit for bit, and
+    its test metrics equal the uninterrupted run's. Returns the launches of
+    the first run and of the resumed one."""
+    from recformer_tpu_torch.cli import finetune_classification as fc
+    from recformer_tpu_torch.config import RecformerConfig
+
+    n = {s: len(read_json(os.path.join(data, f"{s}.json"))) for s in ("train", "val", "test")}
+    bs, eval_bs, epochs, layers = 16, 32, 2, RecformerConfig.base().num_hidden_layers
+    steps = math.ceil(n["train"] / bs)  # an epoch: the last batch padded
+    dev_fw, test_fw = math.ceil(n["val"] / eval_bs), math.ceil(n["test"] / eval_bs)
+
+    def expect(epochs_run):
+        fw = epochs_run * (steps + dev_fw) + test_fw
+        return {**{k: 0 for k in COUNTERS}, "band_attention_fwd": layers * fw,
+                "band_attention_fwd_tc": layers * fw,
+                "band_attention_bwd": layers * epochs_run * steps,
+                "band_attention_bwd_tc": layers * epochs_run * steps}
+
+    args = ["--data_path", data, "--model_size", "base", "--device", "cuda",
+            "--num_train_epochs", str(epochs), "--batch_size", str(bs), "--eval_batch_size",
+            str(eval_bs), "--head_lr", "1e-3", "--seed", str(seed), "--pretrain_ckpt", fraud_pt]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out")
+        with _MergeRecord() as loads:
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics = fc.main(args + ["--output_dir", out])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+        res = os.path.join(out, "classification_data")
+        written = sorted(os.listdir(res))
+        with open(os.path.join(res, "epoch_metrics.json")) as f:
+            epoch_rows = json.load(f)
+        expected = expect(epochs)
+        numbers = [v for k, v in metrics.items() if k != "confusion"]
+        ok = (counts == expected and loads.all_copied()
+              and written == ["best_model.pt", "config.json", "epoch_metrics.json",
+                              "test_metrics.json"]
+              and all(math.isfinite(v) for v in numbers) and len(epoch_rows) == epochs)
+        emit("fraud_cli", cards=n, epochs=epochs, train_steps=epochs * steps,
+             sweep_batches={"dev": epochs * dev_fw, "test": test_fw}, seconds=secs,
+             fraud_pt_tensors_copied=len(loads[0][0]) if loads else 0,
+             dev_rows=epoch_rows, test_metrics=metrics, written=written, launches=counts,
+             expected_launches=expected, card=card, ok=ok)
+        if not ok:
+            raise AssertionError(f"fraud_cli: written {written}, metrics {metrics}, loads "
+                                 f"{[(len(a), b) for a, b, _ in loads]}, launches {counts} "
+                                 f"(expected {expected})")
+
+        out2 = os.path.join(tmp, "out2")
+        real_eval, real_restore = fc.evaluate_fraud, fc.restore_train_state
+        sweeps, restored = [], {}
+
+        def dies_at_second_sweep(*a, **k):
+            sweeps.append(1)
+            if len(sweeps) == 2:
+                raise _Interrupt
+            return real_eval(*a, **k)
+
+        def checked_restore(path, model, optimizer):
+            pos = real_restore(path, model, optimizer)
+            saved = torch.load(path, map_location="cpu", weights_only=True)["params"]
+            restored["params_bit_equal"] = all(torch.equal(v.cpu(), saved[k])
+                                               for k, v in model.state_dict().items())
+            restored["tensors"] = len(saved)
+            return pos
+
+        try:
+            fc.evaluate_fraud = dies_at_second_sweep
+            interrupted = False
+            try:
+                fc.main(args + ["--output_dir", out2])
+            except _Interrupt:
+                interrupted = True
+            fc.evaluate_fraud = real_eval
+            stale = os.path.exists(os.path.join(out2, "classification_data", "loop_state",
+                                                "loop.json"))
+            fc.restore_train_state = checked_restore
+            reset_counts()
+            resumed = fc.main(args + ["--output_dir", out2, "--resume"])
+            torch.cuda.synchronize()
+            resume_counts = read_counts()
+        finally:
+            fc.evaluate_fraud, fc.restore_train_state = real_eval, real_restore
+        resume_expected = expect(1)
+        ok = (interrupted and stale and restored.get("params_bit_equal") is True
+              and resume_counts == resume_expected and resumed == metrics
+              and not os.path.exists(os.path.join(out2, "classification_data", "loop_state")))
+        emit("fraud_cli_resume", interrupted_at_epoch_1_sweep=interrupted,
+             loop_state_left=stale, restored=restored, test_metrics=resumed,
+             equals_uninterrupted=resumed == metrics, launches=resume_counts,
+             expected_launches=resume_expected, ok=ok)
+        if not ok:
+            raise AssertionError(f"fraud_cli_resume: interrupted {interrupted}, stale {stale}, "
+                                 f"{restored}, metrics {resumed} vs {metrics}, launches "
+                                 f"{resume_counts} (expected {resume_expected})")
+    return counts, resume_counts
+
+
+def run_fraud(seed, card, pretrain_best):
+    """The fraud phases on one synthetic transaction corpus, and the
+    conversion of ``pretrain_best`` whose ``fraud.pt`` the fraud CLI starts
+    from. Returns each phase's launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = build_fraud_corpus(os.path.join(tmp, "txn"), seed)
+        emit("fraud_corpus", seconds=time.perf_counter() - t0,
+             cards={s: len(read_json(os.path.join(data, f"{s}.json")))
+                    for s in ("train", "val", "test")},
+             items=len(read_json(os.path.join(data, "smap.json"))))
+        phases = {"fraud_step": run_fraud_step(seed, card, data)}
+        run_fraud_vs_chunked(seed, data)
+        conv = os.path.join(tmp, "converted")
+        phases["convert_ckpt"] = run_convert_ckpt(seed, card, pretrain_best, conv)
+        phases["fraud_cli"], phases["fraud_cli_resume"] = run_fraud_cli(
+            seed, card, data, os.path.join(conv, "fraud.pt"))
+    return phases
+
 
 def main(argv=None) -> int:
     t_start = time.perf_counter()
@@ -1934,15 +2363,18 @@ def main(argv=None) -> int:
     run_pretrain_turns(args.seed, card)
     run_pretrain_vs_chunked(args.seed)
     run_pretrain_ln_kernels_vs_plain(args.seed)
-    phases["pretrain_cli"] = run_pretrain_cli(args.seed)
-    phases["pretrain_cli_ln_impl"] = run_pretrain_cli(
-        args.seed, phase="pretrain_cli_ln_impl", extra=("--ln_impl", "pallas_bwd"))
-    phases["pretrain_cli_preemption"] = run_pretrain_preemption(args.seed)
-    phases["finetune_step"] = run_finetune_step(args.seed, card, 0, "finetune_step")
-    phases["finetune_step_sampled"] = run_finetune_step(args.seed, card, 1000,
-                                                        "finetune_step_sampled")
-    run_finetune_vs_chunked(args.seed)
-    phases["finetune_cli"], phases["finetune_cli_resume"] = run_finetune_cli(args.seed, card)
+    with tempfile.TemporaryDirectory() as keep:
+        phases["pretrain_cli"] = run_pretrain_cli(args.seed, keep=keep)
+        phases["pretrain_cli_ln_impl"] = run_pretrain_cli(
+            args.seed, phase="pretrain_cli_ln_impl", extra=("--ln_impl", "pallas_bwd"))
+        phases["pretrain_cli_preemption"] = run_pretrain_preemption(args.seed)
+        phases["finetune_step"] = run_finetune_step(args.seed, card, 0, "finetune_step")
+        phases["finetune_step_sampled"] = run_finetune_step(args.seed, card, 1000,
+                                                            "finetune_step_sampled")
+        run_finetune_vs_chunked(args.seed)
+        phases["finetune_cli"], phases["finetune_cli_resume"] = run_finetune_cli(args.seed,
+                                                                                 card)
+        phases.update(run_fraud(args.seed, card, os.path.join(keep, "best.pt")))
 
     sources = {"band_attention_fwd": "band_attention_fwd.cu",
                "band_attention_bwd": "band_attention_bwd.cu",

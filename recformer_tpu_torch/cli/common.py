@@ -9,7 +9,6 @@ unless the caller asks for ``cpu``.
 from __future__ import annotations
 
 import os
-import re
 from typing import Dict, Optional
 
 import torch
@@ -19,6 +18,7 @@ from ..data.item_table import ItemTable
 from ..data.tokenization import RecformerTokenizer
 from ..data.vocab import backend_for_config
 from ..models.recformer import init_weights
+from ..training.checkpoint import load_torch_checkpoint, merge_params
 from ..utils.device import resolve_device
 
 
@@ -76,24 +76,9 @@ def init_model_params(model, config: RecformerConfig, device="cuda", seed: int =
 
 
 def maybe_load_pretrained(model, ckpt_path: Optional[str]):
-    """Load a torch ``.bin``/``.pt`` state dict into ``model``: every
-    name+shape match is copied, the rest keeps its initial value (the
-    reference's ``strict=False`` load). Returns the model."""
-    if not ckpt_path:
-        return model
-    sd = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-    if "state_dict" in sd and isinstance(sd["state_dict"], dict):
-        sd = sd["state_dict"]
-    own = model.state_dict()
-    matched, skipped = {}, []
-    for name, tensor in sd.items():
-        n = re.sub(r"^model\.", "", re.sub(r"^_forward_module\.", "", name))
-        if n in own and own[n].shape == tensor.shape:
-            matched[n] = tensor
-        else:
-            skipped.append(name)
-    model.load_state_dict(matched, strict=False)
-    print(f"[import] copied {len(matched)} tensors, skipped {len(skipped)}")
-    for s in skipped[:20]:
-        print(f"[import]   skipped: {s}")
+    """Load a torch ``.bin``/``.pt`` state dict into ``model`` with
+    ``training.checkpoint.merge_params``: every name and shape match is
+    copied, the rest keeps its initial value. Returns the model."""
+    if ckpt_path:
+        merge_params(load_torch_checkpoint(ckpt_path), model)
     return model

@@ -1,11 +1,12 @@
-"""Task heads: pretraining (contrastive + MLM) and the sequence encoder.
+"""Task heads: pretraining (contrastive + MLM), the sequence encoder and
+fraud detection.
 
 Counterparts of ``cosine_similarity``, ``similarity_scores``,
-``MLMTransform``, ``RecformerForPretraining`` and ``RecformerForSeqRec`` in
-``recformer_tpu/models/heads.py``. The item catalog is not a parameter: the
-item-encoding service produces it and scoring takes it as an argument. The
-MLM head evaluates logits only at gathered masked positions, through a
-decoder tied to the word embeddings. The fraud head comes with its slice.
+``MLMTransform``, ``RecformerForPretraining``, ``RecformerForSeqRec`` and
+``RecformerForFraudDetection`` in ``recformer_tpu/models/heads.py``. The
+item catalog is not a parameter: the item-encoding service produces it and
+scoring takes it as an argument. The MLM head evaluates logits only at
+gathered masked positions, through a decoder tied to the word embeddings.
 """
 
 from __future__ import annotations
@@ -13,11 +14,16 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import RecformerConfig
+from ..utils.rng import dropout
 from .encoder import activation, block_layernorm, dense
 from .recformer import RecformerModel
+
+# the fraud MLP's dropout rate: a constant of the JAX head, not a config field
+FRAUD_MLP_DROPOUT = 0.2
 
 
 def cosine_similarity(x: torch.Tensor, y: torch.Tensor, dim: int = -1, eps: float = 1e-8):
@@ -60,6 +66,41 @@ class RecformerForSeqRec(nn.Module):
             rng=rng,
         )
         return pooled
+
+
+class RecformerForFraudDetection(nn.Module):
+    """Backbone -> dropout(``hidden_dropout_prob``) -> a 3-layer MLP
+    (H -> H/2 -> H/4 -> 1, ReLU, dropout 0.2 after each hidden layer) -> a
+    scalar logit per row. The dense layers run in the compute type, as flax
+    ``Dense(dtype=compute_dtype)`` does; every dropout draws from the step's
+    ``rng``."""
+
+    def __init__(self, config: RecformerConfig):
+        super().__init__()
+        self.config = config
+        self.longformer = RecformerModel(config)
+        h, pd = config.hidden_size, config.params_dtype
+        self.fc1 = nn.Linear(h, h // 2, dtype=pd)
+        self.fc2 = nn.Linear(h // 2, h // 4, dtype=pd)
+        self.fc3 = nn.Linear(h // 4, 1, dtype=pd)
+
+    def forward(self, batch: Dict[str, torch.Tensor], deterministic: bool = True,
+                rng=None) -> torch.Tensor:
+        _, pooled = self.longformer(
+            input_ids=batch["input_ids"],
+            attention_mask=batch["attention_mask"],
+            global_attention_mask=batch["global_attention_mask"],
+            token_type_ids=batch["token_type_ids"],
+            item_position_ids=batch["item_position_ids"],
+            deterministic=deterministic,
+            rng=rng,
+        )
+        rng = None if deterministic else rng
+        dt = self.config.compute_dtype
+        x = dropout(pooled, self.config.hidden_dropout_prob, rng)
+        x = dropout(F.relu(dense(x, self.fc1, dt)), FRAUD_MLP_DROPOUT, rng)
+        x = dropout(F.relu(dense(x, self.fc2, dt)), FRAUD_MLP_DROPOUT, rng)
+        return dense(x, self.fc3, dt)[..., 0]
 
 
 class MLMTransform(nn.Module):

@@ -1,9 +1,10 @@
-"""Checkpoints in torch format: parameters, train state for exact resume, and
-the k best checkpoints by a metric.
+"""Checkpoints in torch format: parameters, train state for exact resume,
+the k best checkpoints by a metric, and loading a foreign state dict.
 
 Counterpart of ``save_params``/``restore_params``,
-``save_train_state``/``restore_train_state`` and ``TopKCheckpointManager``
-in ``recformer_tpu/training/checkpoint.py``, which write orbax directories.
+``save_train_state``/``restore_train_state``, ``TopKCheckpointManager``,
+``load_torch_checkpoint`` and ``merge_params`` in
+``recformer_tpu/training/checkpoint.py``, which write orbax directories.
 Here every checkpoint is one ``torch.save`` file, written to a temporary
 name and moved into place, so a run killed mid-write leaves the previous
 file whole:
@@ -24,6 +25,8 @@ import re
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from ..weights import strip_wrapper_prefixes
 
 
 def _atomic_save(obj, path: str) -> None:
@@ -64,6 +67,33 @@ def restore_train_state(path: str, model, optimizer) -> dict:
     optimizer.load_state_dict(state["optimizer"])
     assert optimizer.micro_steps == state["step"], (optimizer.micro_steps, state["step"])
     return state["position"]
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A torch ``.bin``/``.pt`` state dict on the CPU: a ``"state_dict"``
+    key unwrapped, the Lightning/DeepSpeed ``_forward_module.`` and
+    ``model.`` prefixes stripped."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in sd and isinstance(sd["state_dict"], dict):
+        sd = sd["state_dict"]
+    return {strip_wrapper_prefixes(k): v for k, v in sd.items()}
+
+
+def merge_params(source: Dict[str, torch.Tensor], model,
+                 verbose: bool = True) -> Tuple[List[str], List[str]]:
+    """The reference's ``load_state_dict(..., strict=False)``: copy every
+    tensor of ``source`` whose name and shape ``model`` has, in the model's
+    type; the rest of the model keeps its values. Returns the names copied
+    and the names skipped."""
+    own = model.state_dict()
+    matched = {n: t for n, t in source.items() if n in own and own[n].shape == t.shape}
+    skipped = [n for n in source if n not in matched]
+    model.load_state_dict(matched, strict=False)
+    if verbose:
+        print(f"[import] copied {len(matched)} tensors, skipped {len(skipped)}")
+        for n in skipped[:20]:
+            print(f"[import]   skipped: {n}")
+    return list(matched), skipped
 
 
 class TopKCheckpointManager:

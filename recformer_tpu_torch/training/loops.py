@@ -1,9 +1,11 @@
-"""Host-side orchestration: catalog encoding, ranked evaluation and the
-two-stage seq-rec finetune.
+"""Host-side orchestration: catalog encoding, ranked evaluation, the
+two-stage seq-rec finetune and fraud evaluation.
 
 Counterparts of ``encode_all_items``, ``evaluate_seqrec``,
-``train_seqrec_epoch`` and ``finetune_two_stage`` in
-``recformer_tpu/training/loops.py``. Each streams fixed-size batches
+``train_seqrec_epoch``, ``finetune_two_stage``,
+``binary_classification_metrics``, ``roc_auc`` and ``evaluate_fraud`` in
+``recformer_tpu/training/loops.py``; the fraud metrics are computed on the
+host in numpy, as there. Each streams fixed-size batches
 through the model on its device and keeps its results there; the host reads
 once at the end (an epoch's loss: once per epoch).
 """
@@ -18,10 +20,15 @@ import numpy as np
 import torch
 
 from ..config import RecformerConfig
-from ..data.datasets import EvalDataset, SequenceDataset
+from ..data.datasets import EvalDataset, FraudDataset, SequenceDataset
 from ..utils.logging import append_jsonl
 from .checkpoint import restore_params, restore_train_state, save_params, save_train_state
-from .steps import make_encode_items_step, make_eval_step, make_finetune_step
+from .steps import (
+    make_encode_items_step,
+    make_eval_step,
+    make_finetune_step,
+    make_fraud_eval_step,
+)
 
 
 def _model_device(model) -> torch.device:
@@ -254,3 +261,102 @@ def finetune_two_stage(
     test_metrics = evaluate(test_dataset, item_embeddings)
     append_jsonl(mirror_path, {"event": "test", **test_metrics})
     return model, item_embeddings, test_metrics
+
+
+# ---------------------------------------------------------------------------
+# fraud classification
+# ---------------------------------------------------------------------------
+
+def train_fraud_epoch(step, seed: int, table, dataset: FraudDataset, batch_size: int,
+                      epoch: int, device) -> float:
+    """One epoch of fraud steps over ``dataset`` shuffled with seed
+    ``epoch``; the last batch is padded with invalid rows. Returns the mean
+    step loss, read from the device once."""
+    losses = []
+    for batch in dataset.batches(batch_size, shuffle=True, seed=epoch):
+        metrics = step(seed, table, *(torch.from_numpy(a).to(device) for a in (
+            batch.item_ids, batch.seq_lens, batch.labels, batch.valid)))
+        losses.append(metrics["loss"])
+    if not losses:
+        return 0.0
+    return float(torch.stack(losses).double().mean())
+
+
+def binary_classification_metrics(probs: np.ndarray, labels: np.ndarray,
+                                  threshold: float) -> Dict:
+    preds = (probs >= threshold).astype(np.int64)
+    y = labels.astype(np.int64)
+    tp = int(((preds == 1) & (y == 1)).sum())
+    tn = int(((preds == 0) & (y == 0)).sum())
+    fp = int(((preds == 1) & (y == 0)).sum())
+    fn = int(((preds == 0) & (y == 1)).sum())
+    precision = tp / max(tp + fp, 1)
+    recall = tp / max(tp + fn, 1)
+    f1 = 2 * precision * recall / max(precision + recall, 1e-12)
+    acc = (tp + tn) / max(len(y), 1)
+    tpr = tp / max(tp + fn, 1)
+    tnr = tn / max(tn + fp, 1)
+    return {
+        "accuracy": acc,
+        "balanced_accuracy": 0.5 * (tpr + tnr),
+        "precision": precision,
+        "recall": recall,
+        "f1": f1,
+        "threshold": threshold,
+        "confusion": {"tp": tp, "tn": tn, "fp": fp, "fn": fn},
+    }
+
+
+def roc_auc(probs: np.ndarray, labels: np.ndarray) -> float:
+    """Rank-based ROC AUC (Mann-Whitney U), ties averaged; 0.5 when a class
+    is missing."""
+    y = labels.astype(bool)
+    n_pos, n_neg = int(y.sum()), int((~y).sum())
+    if n_pos == 0 or n_neg == 0:
+        return 0.5
+    order = np.argsort(probs, kind="mergesort")
+    ranks = np.empty_like(order, dtype=np.float64)
+    sorted_p = probs[order]
+    i = 0
+    r = 1
+    while i < len(sorted_p):
+        j = i
+        while j + 1 < len(sorted_p) and sorted_p[j + 1] == sorted_p[i]:
+            j += 1
+        ranks[order[i: j + 1]] = (r + r + (j - i)) / 2.0
+        r += j - i + 1
+        i = j + 1
+    return float((ranks[y].sum() - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
+
+
+def fraud_probabilities(model, table, dataset: FraudDataset, config: RecformerConfig,
+                        batch_size: int = 32) -> Tuple[np.ndarray, np.ndarray]:
+    """The fraud probability and label of every valid row of ``dataset``,
+    in its order; the probabilities stay on the device until the end."""
+    step = make_fraud_eval_step(config, model)
+    dev = _model_device(model)
+    probs, labels, valid = [], [], []
+    for batch in dataset.batches(batch_size):
+        probs.append(step(table, torch.from_numpy(batch.item_ids).to(dev),
+                          torch.from_numpy(batch.seq_lens).to(dev)))
+        labels.append(batch.labels)
+        valid.append(batch.valid)
+    if not probs:
+        return np.zeros(0, np.float32), np.zeros(0, np.float32)
+    keep = np.concatenate(valid)
+    return torch.cat(probs).cpu().numpy()[keep], np.concatenate(labels)[keep]
+
+
+def evaluate_fraud(model, table, dataset: FraudDataset, config: RecformerConfig,
+                   batch_size: int = 32,
+                   thresholds: Sequence[float] = tuple(np.arange(0.1, 0.91, 0.1))) -> Dict:
+    """The threshold sweep: the metrics at the first threshold with the
+    highest F1, plus the ROC AUC over the valid rows."""
+    probs, labels = fraud_probabilities(model, table, dataset, config, batch_size)
+    best = None
+    for t in thresholds:
+        m = binary_classification_metrics(probs, labels, float(t))
+        if best is None or m["f1"] > best["f1"]:
+            best = m
+    best["auc"] = roc_auc(probs, labels)
+    return best

@@ -1,8 +1,9 @@
-"""Pretraining and sequential-recommendation losses, in float32 whatever
-the compute type.
+"""Pretraining, sequential-recommendation and fraud losses, in float32
+whatever the compute type.
 
 Counterparts of ``IGNORE_INDEX``, ``info_nce_loss``, ``mlm_loss``,
-``seqrec_full_softmax_loss`` and ``seqrec_sampled_softmax_loss`` in
+``seqrec_full_softmax_loss``, ``seqrec_sampled_softmax_loss``,
+``bce_with_logits_loss`` and ``focal_loss`` in
 ``recformer_tpu/training/losses.py``, on one device (the JAX package's
 ``axis_name=None``): the cross-device gather of the contrastive negatives
 comes with the parallel slice.
@@ -10,7 +11,7 @@ comes with the parallel slice.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -18,7 +19,8 @@ from ..data.device_pipeline import IGNORE_INDEX
 from ..models.heads import similarity_scores
 
 __all__ = ["IGNORE_INDEX", "info_nce_loss", "mlm_loss", "seqrec_full_softmax_loss",
-           "seqrec_sampled_softmax_loss", "seqrec_sampled_softmax_loss_from_negatives"]
+           "seqrec_sampled_softmax_loss", "seqrec_sampled_softmax_loss_from_negatives",
+           "bce_with_logits_terms", "bce_with_logits_loss", "focal_loss"]
 
 
 def _l2norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -81,3 +83,36 @@ def seqrec_sampled_softmax_loss(pooled, item_embeddings, labels, temp: float,
                               generator=generator, device=labels.device)
     return seqrec_sampled_softmax_loss_from_negatives(pooled, item_embeddings, labels, temp,
                                                       negatives)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it (no linear
+    cut-off above a threshold, unlike ``F.softplus``)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def bce_with_logits_terms(logits: torch.Tensor, labels: torch.Tensor,
+                          pos_weight: float = 1.0) -> torch.Tensor:
+    """Per-row ``BCEWithLogitsLoss(pos_weight)`` terms in float32."""
+    x, y = logits.float(), labels.float()
+    return pos_weight * y * softplus(-x) + (1.0 - y) * softplus(x)
+
+
+def bce_with_logits_loss(logits: torch.Tensor, labels: torch.Tensor,
+                         pos_weight: float = 1.0) -> torch.Tensor:
+    """The mean of :func:`bce_with_logits_terms`."""
+    return bce_with_logits_terms(logits, labels, pos_weight).mean()
+
+
+def focal_loss(logits: torch.Tensor, labels: torch.Tensor, alpha: Optional[float] = 1.0,
+               gamma: float = 2.0, pos_weight: Optional[float] = None) -> torch.Tensor:
+    """Focal loss over the (``pos_weight``-weighted) BCE terms: each term
+    times ``(1 - p_t) ** gamma`` and, unless ``alpha`` is None, the class
+    weight ``alpha`` / ``1 - alpha``. The fraud CLI trains with BCE."""
+    x, y = logits.float(), labels.float()
+    ce = bce_with_logits_terms(x, y, 1.0 if pos_weight is None else pos_weight)
+    p = torch.sigmoid(x)
+    w = (1.0 - (p * y + (1.0 - p) * (1.0 - y))) ** gamma
+    if alpha is not None:
+        w = (alpha * y + (1.0 - alpha) * (1.0 - y)) * w
+    return (w * ce).mean()

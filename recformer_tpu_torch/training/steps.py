@@ -1,8 +1,9 @@
 """Training and serving steps: pretraining, seq-rec finetuning, ranked
-evaluation, item encoding.
+evaluation, item encoding, fraud classification.
 
 Counterparts of ``make_pretrain_step``, ``make_pretrain_eval_step``,
-``make_finetune_step``, ``make_eval_step`` and ``make_encode_items_step`` in
+``make_finetune_step``, ``make_eval_step``, ``make_encode_items_step``,
+``make_fraud_train_step`` and ``make_fraud_eval_step`` in
 ``recformer_tpu/training/steps.py``, single device, as plain functions over a
 model that holds its parameters. Batch construction runs on the model's
 device inside the step; the host ships item-id arrays only. Metrics come
@@ -146,5 +147,43 @@ def make_encode_items_step(config: RecformerConfig, model):
         lens = torch.ones_like(item_id_chunk)
         batch = assemble_for_config(table, ids, lens, config, out_len=config.item_seq_len)
         return model(batch)
+
+    return step
+
+
+def fraud_loss(config: RecformerConfig, logits, labels, valid) -> torch.Tensor:
+    """BCE with ``config.pos_weight`` over the valid rows: the weighted sum
+    over ``max(sum(valid), 1)``."""
+    w = valid.float()
+    per = losses.bce_with_logits_terms(logits, labels, config.pos_weight)
+    return (per * w).sum() / w.sum().clamp_min(1.0)
+
+
+def make_fraud_train_step(config: RecformerConfig, model, optimizer):
+    """step(seed, table, item_ids, seq_lens, labels, valid) -> {loss}: the
+    batch on the device, the fraud model with dropout (the backbone's and
+    the head's), :func:`fraud_loss`, its backward and one optimizer
+    micro-step. The draws come from ``fold_in(seed, micro-step)``, as in
+    :func:`make_finetune_step`."""
+
+    def step(seed, table, item_ids, seq_lens, labels, valid) -> Dict[str, torch.Tensor]:
+        rng = StepRNG(fold_in(seed, optimizer.micro_steps), item_ids.device)
+        batch = assemble_for_config(table, item_ids, seq_lens, config)
+        loss = fraud_loss(config, model(batch, deterministic=False, rng=rng), labels, valid)
+        loss.backward()
+        optimizer.step()
+        return {"loss": loss.detach()}
+
+    return step
+
+
+def make_fraud_eval_step(config: RecformerConfig, model):
+    """step(table, item_ids, seq_lens) -> the float32 fraud probability of
+    each row (a deterministic forward)."""
+
+    @torch.inference_mode()
+    def step(table, item_ids, seq_lens):
+        batch = assemble_for_config(table, item_ids, seq_lens, config)
+        return torch.sigmoid(model(batch).float())
 
     return step

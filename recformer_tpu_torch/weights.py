@@ -6,6 +6,12 @@ kernels stored transposed (flax ``(in, out)`` vs torch ``(out, in)``), is
 the one ``recformer_tpu/training/checkpoint.py`` keeps in
 ``_torch_name_to_flax_path``; this module holds its own copy.
 
+Three trees are carried: a task model's (the backbone under
+``longformer``, with the MLM head ``lm_head`` or the fraud head
+``fc1``-``fc3``), and the bare backbone, ``RecformerModel``'s own, whose
+torch names have no ``longformer.`` prefix and whose flax tree is the task
+tree's ``longformer`` subtree (``cli.convert_ckpt`` writes it so).
+
 Both encoder layouts of the flax tree are handled: the unrolled
 ``encoder/layer_{i}/...`` siblings and the stacked ``scan_layers`` layout
 ``encoder/layers/layer/...``, whose leaves carry a leading
@@ -53,41 +59,55 @@ _LM_HEAD = {
     "lm_head.layer_norm.bias": (("lm_head", "layer_norm", "bias"), False),
     "lm_head.bias": (("lm_head", "bias"), False),
 }
+# the fraud head's three dense layers (flax ``fc1``-``fc3``)
+_FRAUD_HEAD = {}
+for _i in (1, 2, 3):
+    _FRAUD_HEAD[f"fc{_i}.weight"] = ((f"fc{_i}", "kernel"), True)
+    _FRAUD_HEAD[f"fc{_i}.bias"] = ((f"fc{_i}", "bias"), False)
+_HEADS = {**_LM_HEAD, **_FRAUD_HEAD}
 _EMBEDDINGS_INV = {path: (name, tr) for name, (path, tr) in _EMBEDDINGS.items()}
 _LAYER_INV = {path: (name, tr) for name, (path, tr) in _LAYER.items()}
-_LM_HEAD_INV = {path: (name, tr) for name, (path, tr) in _LM_HEAD.items()}
+_HEADS_INV = {path: (name, tr) for name, (path, tr) in _HEADS.items()}
+
+
+def strip_wrapper_prefixes(name: str) -> str:
+    """A parameter name without the Lightning/DeepSpeed wrappers'
+    ``_forward_module.`` and ``model.`` prefixes."""
+    return re.sub(r"^model\.", "", re.sub(r"^_forward_module\.", "", name))
 
 
 def torch_name_to_flax_path(name: str) -> Tuple[Tuple[str, ...], bool]:
-    """(flax path, transpose) of a torch Longformer/Recformer parameter name;
-    KeyError for a name with no counterpart."""
-    n = re.sub(r"^_forward_module\.", "", name)
-    n = re.sub(r"^model\.", "", n)
-    m = re.match(r"^longformer\.embeddings\.(.+)$", n)
-    if m and m.group(1) in _EMBEDDINGS:
-        path, tr = _EMBEDDINGS[m.group(1)]
-        return ("longformer", "embeddings") + path, tr
-    m = re.match(r"^longformer\.encoder\.layer\.(\d+)\.(.+)$", n)
-    if m and m.group(2) in _LAYER:
-        path, tr = _LAYER[m.group(2)]
-        return ("longformer", "encoder", f"layer_{int(m.group(1))}") + path, tr
-    if n in _LM_HEAD:
-        return _LM_HEAD[n]
+    """(flax path, transpose) of a torch Longformer/Recformer parameter name,
+    a task model's or the bare backbone's; KeyError for a name with no
+    counterpart."""
+    n = strip_wrapper_prefixes(name)
+    m = re.match(r"^(longformer\.)?embeddings\.(.+)$", n)
+    if m and m.group(2) in _EMBEDDINGS:
+        path, tr = _EMBEDDINGS[m.group(2)]
+        return ("longformer",) * bool(m.group(1)) + ("embeddings",) + path, tr
+    m = re.match(r"^(longformer\.)?encoder\.layer\.(\d+)\.(.+)$", n)
+    if m and m.group(3) in _LAYER:
+        path, tr = _LAYER[m.group(3)]
+        return (("longformer",) * bool(m.group(1))
+                + ("encoder", f"layer_{int(m.group(2))}") + path, tr)
+    if n in _HEADS:
+        return _HEADS[n]
     raise KeyError(name)
 
 
 def flax_path_to_torch_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
     """Inverse of :func:`torch_name_to_flax_path`."""
-    if path[:2] == ("longformer", "embeddings") and path[2:] in _EMBEDDINGS_INV:
-        name, tr = _EMBEDDINGS_INV[path[2:]]
-        return f"longformer.embeddings.{name}", tr
-    if len(path) > 3 and path[:2] == ("longformer", "encoder"):
-        m = re.fullmatch(r"layer_(\d+)", path[2])
-        if m and path[3:] in _LAYER_INV:
-            name, tr = _LAYER_INV[path[3:]]
-            return f"longformer.encoder.layer.{int(m.group(1))}.{name}", tr
-    if path in _LM_HEAD_INV:
-        return _LM_HEAD_INV[path]
+    if path in _HEADS_INV:
+        return _HEADS_INV[path]
+    prefix, rest = ("longformer.", path[1:]) if path[:1] == ("longformer",) else ("", path)
+    if rest[:1] == ("embeddings",) and rest[1:] in _EMBEDDINGS_INV:
+        name, tr = _EMBEDDINGS_INV[rest[1:]]
+        return f"{prefix}embeddings.{name}", tr
+    if len(rest) > 2 and rest[0] == "encoder":
+        m = re.fullmatch(r"layer_(\d+)", rest[1])
+        if m and rest[2:] in _LAYER_INV:
+            name, tr = _LAYER_INV[rest[2:]]
+            return f"{prefix}encoder.layer.{int(m.group(1))}.{name}", tr
     raise KeyError("/".join(path))
 
 

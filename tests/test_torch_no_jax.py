@@ -22,7 +22,9 @@ def test_importing_every_module_loads_no_jax():
     for name in ("ops.window_attention", "ops.layernorm", "ops.embed_layernorm",
                  "ops.band_probes", "benchmarks.kernel_ablation", "benchmarks.headpair_probe",
                  "cli.encode_items", "cli.evaluate_seq", "utils.timing", "cli.finetune",
-                 "training.checkpoint", "utils.logging"):
+                 "training.checkpoint", "utils.logging", "cli.finetune_classification",
+                 "cli.convert_ckpt", "pipelines.transactional",
+                 "pipelines.synthetic_transactions"):
         assert f"recformer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -54,7 +56,8 @@ def test_sources_name_no_jax():
             "embed_layernorm.py", "band_mma.cuh", "band_probes.cu", "band_probes.py",
             "kernel_ablation.py", "headpair_probe.py", "encode_items.py", "evaluate_seq.py",
             "timing.py", "finetune.py", "checkpoint.py", "logging.py",
-            "profile_torch_finetune.py"} <= names
+            "profile_torch_finetune.py", "finetune_classification.py", "convert_ckpt.py",
+            "transactional.py", "synthetic_transactions.py"} <= names
     for path in sources:
         with open(path) as f:
             text = f.read()
