@@ -1,5 +1,5 @@
-"""Host-side dataset views and static-shaped batch iterators (numpy copy of
-``recformer_tpu/data/datasets.py``).
+"""Host-side dataset views and static-shaped batch iterators (the port's copy
+of ``recformer_tpu/data/datasets.py``).
 
 The reference wraps user->sequence dicts in torch ``Dataset``/``DataLoader``
 pairs with Python collators (``reference/dataloader.py``). Here the host
@@ -25,6 +25,8 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+
+from ..native import RaggedSequences
 
 
 @dataclass
@@ -54,50 +56,33 @@ def _pad_sequences(seqs: Sequence[Sequence[int]], max_len: int) -> tuple[np.ndar
 
 class SequenceDataset:
     """Train-time view: one row per user (sorted user ids for determinism,
-    matching ``dataloader.py:13``). Batches are packed in numpy, with the
-    semantics of the JAX package's ragged batcher: a row keeps its newest
-    ``max_items`` items, and rows past the end (or empty sequences) are
-    invalid with length 1. A shuffled order comes from numpy's generator,
-    not from the native batcher's shuffle."""
+    matching ``dataloader.py:13``). Batches are packed and shuffled by the
+    port's host library (``native.RaggedSequences``), as the JAX package's
+    are by its own: a row keeps its newest ``max_items`` items, rows past
+    the end (or empty sequences) are invalid with length 1, and a shuffled
+    epoch's order is the splitmix64 Fisher-Yates of ``native/batcher.cpp``
+    from the seed, so both stacks train on the same batches."""
 
     def __init__(self, user2seq: Dict[int, List[int]], max_items: int):
         self.users = sorted(user2seq.keys())
-        self.seqs = [list(user2seq[u]) for u in self.users]
+        self.seqs = [user2seq[u] for u in self.users]
         self.max_items = max_items
+        self._ragged = RaggedSequences(self.seqs)
 
     def __len__(self):
         return len(self.seqs)
-
-    def epoch_order(self, shuffle: bool, seed: int) -> np.ndarray:
-        order = np.arange(len(self.seqs), dtype=np.int64)
-        if shuffle:
-            np.random.default_rng(seed).shuffle(order)
-        return order
-
-    def pack(self, order: np.ndarray, start: int, batch: int) -> SequenceBatch:
-        ids = np.zeros((batch, self.max_items), np.int32)
-        lens = np.ones(batch, np.int32)
-        valid = np.zeros(batch, bool)
-        for b in range(batch):
-            pos = start + b
-            if pos >= len(order):
-                continue
-            seq = self.seqs[order[pos]][-self.max_items:]
-            ids[b, : len(seq)] = seq
-            lens[b] = max(len(seq), 1)
-            valid[b] = len(seq) > 0
-        return SequenceBatch(ids, lens, valid)
 
     def batches(self, batch_size: int, shuffle: bool = False, seed: int = 0,
                 drop_last: bool = False, process_index: int = 0,
                 process_count: int = 1) -> Iterator[SequenceBatch]:
         """``process_index/count`` shard the (shuffled) row order across
         processes."""
-        order = self.epoch_order(shuffle, seed)[process_index::process_count]
+        order = self._ragged.epoch_order(shuffle, seed)[process_index::process_count]
         n = len(order)
         nb = n // batch_size if drop_last else -(-n // batch_size)
         for b in range(nb):
-            yield self.pack(order, b * batch_size, batch_size)
+            yield SequenceBatch(*self._ragged.pack(order, b * batch_size, batch_size,
+                                                   self.max_items))
 
 
 class EvalDataset:

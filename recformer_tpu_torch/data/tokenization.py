@@ -1,4 +1,4 @@
-"""Item / sequence encoding with reference-parity semantics (numpy-only copy
+"""Item / sequence encoding with reference-parity semantics (the port's copy
 of ``recformer_tpu/data/tokenization.py``).
 
 Reproduces the behavioral contract of the reference tokenizer
@@ -194,10 +194,27 @@ class RecformerTokenizer:
         return out
 
     def encode_corpus_table(self, item_meta: Dict, item2id: Dict[str, int]):
-        """Corpus -> packed ItemTable through the Python ``encode_item`` loop
-        (the JAX package's C++ tokenizer gives bit-identical tables; the
-        port's copy of ``native/`` is queued)."""
+        """Corpus -> packed ItemTable, through the port's C++ tokenizer and
+        packer (``native/``) when the backend is the hash ``SimpleVocab`` and
+        the text is ASCII; through the Python ``encode_item`` loop and
+        ``ItemTable.build`` otherwise. Both give the same table
+        (``tests/test_torch_native.py``)."""
+        from ..native import pack_item_table_native, tokenize_corpus_hash_native
         from .item_table import ItemTable
+        from .vocab import SimpleVocab
 
-        return ItemTable.build(self.tokenize_corpus(item_meta, item2id), self.config,
+        cfg = self.config
+        if isinstance(self.backend, SimpleVocab):
+            mapped = [item2id[k] for k in item_meta if k in item2id]
+            n = (max(mapped) + 1) if mapped else 0  # ItemTable.build sizing
+            items_attrs = [[] for _ in range(n)]
+            for raw_id, attrs in item_meta.items():
+                if raw_id in item2id:
+                    items_attrs[item2id[raw_id]] = list(attrs.items())
+            ragged = tokenize_corpus_hash_native(items_attrs, self.backend, cfg.max_attr_num,
+                                                 cfg.max_attr_length)
+            if ragged is not None:
+                return ItemTable(*pack_item_table_native(*ragged, cfg.max_item_token_len,
+                                                         self.backend.pad_token_id))
+        return ItemTable.build(self.tokenize_corpus(item_meta, item2id), cfg,
                                self.backend.pad_token_id)

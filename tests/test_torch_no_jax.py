@@ -24,7 +24,8 @@ def test_importing_every_module_loads_no_jax():
                  "cli.encode_items", "cli.evaluate_seq", "utils.timing", "cli.finetune",
                  "training.checkpoint", "utils.logging", "cli.finetune_classification",
                  "cli.convert_ckpt", "pipelines.transactional",
-                 "pipelines.synthetic_transactions"):
+                 "pipelines.synthetic_transactions", "native", "pipelines.synthetic",
+                 "utils.clustering", "cli.cluster"):
         assert f"recformer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -46,7 +47,7 @@ def test_sources_name_no_jax():
     bad_import = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|recformer_tpu)\b", re.M)
     jax_package = re.compile(r"\brecformer_tpu\.")
     sources = [os.path.join(d, f) for d, _, fs in os.walk(PKG_DIR) for f in fs
-               if f.endswith((".py", ".cu", ".cuh")) and "_build" not in d.split(os.sep)]
+               if f.endswith((".py", ".cu", ".cuh", ".cpp")) and "_build" not in d.split(os.sep)]
     sources += [os.path.join(REPO, p) for p in (
         "chip_smoke.py", "scripts/profile_torch_serving.py", "scripts/profile_torch_pretrain.py",
         "scripts/profile_torch_ln_bwd.py", "scripts/profile_torch_finetune.py")]
@@ -57,7 +58,8 @@ def test_sources_name_no_jax():
             "kernel_ablation.py", "headpair_probe.py", "encode_items.py", "evaluate_seq.py",
             "timing.py", "finetune.py", "checkpoint.py", "logging.py",
             "profile_torch_finetune.py", "finetune_classification.py", "convert_ckpt.py",
-            "transactional.py", "synthetic_transactions.py"} <= names
+            "transactional.py", "synthetic_transactions.py", "batcher.cpp", "tokenizer.cpp",
+            "synthetic.py", "clustering.py", "cluster.py"} <= names
     for path in sources:
         with open(path) as f:
             text = f.read()

@@ -60,8 +60,8 @@ def test_config_json_is_shared():
 
 
 def test_corpus_table_and_batches_match_jax():
-    """The port's Python tokenizer and numpy batch packing give the tables and
-    batches the JAX package builds with its C++ paths."""
+    """The port's tokenizer and batch packing (its own C++ host library) give
+    the tables and batches the JAX package builds with its C++ paths."""
     from recformer_tpu.data.datasets import SequenceDataset as JaxSequenceDataset
     from recformer_tpu.data.tokenization import RecformerTokenizer as JaxTokenizer
     from recformer_tpu_torch.config import RecformerConfig
