@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, pretraining, finetuning, fraud and analytics paths once on one CUDA card.
+"""Drive every path of the PyTorch port once on one CUDA card, kernels held to their plain versions.
 
     python3 chip_smoke.py [--seed N]
 
@@ -147,7 +147,36 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     from the same centres: >= 99.9% of labels equal, inertia within 1e-4
     relative; cluster_vs_chunked: two batches of 64 histories in float32
     through kernel 1 and through the chunked attention, pooled cosine >
-    0.999 on every row.
+    0.999 on every row;
+24. remat_step: the base pretraining step at batch 8 with dropout 0.1 from
+    one set of weights, without remat and under ``full``,
+    ``save_attention``, ``dots`` and ``dots_attn``: kernel 1 and 2
+    launches a step (48/24 under ``full`` and ``dots``, 24/24 otherwise),
+    the peak memory of 3 steps, host-timed steps/s, one profiled step
+    (device kernels, busy ms); the gradients of one loss at one ``StepRNG``
+    seed within 1e-5 (max|err| / max|ref|, each tensor) of no remat's, the
+    generators ending where no remat's end; the control, a recomputation
+    from fresh generators, must fail that gate; the peaks ordered ``full`` <
+    ``save_attention`` <= ``dots_attn`` <= none and ``full`` < ``dots`` <=
+    ``dots_attn``; remat_step_ln_kernels: ``full`` and ``save_attention``
+    under ``embed_ln_impl='pallas'``, ``ln_impl='pallas_bwd'``, the same
+    counts and gate;
+25. remat_finetune_step: the finetune step (1,000 negatives) under
+    ``save_attention`` and ``full``: launches (12/12, 24/12) and peak;
+26. amazon_pipeline: ``pipelines.amazon`` on a synthetic Amazon-format dump
+    at the smallest paper category's scale (5,300 items, 11,000 users of
+    5-14 reviews) plus a 2,000-user dev category: host seconds, items,
+    users, split sizes;
+27. pretrain_cli_host_flags: ``cli.pretrain --model_size base --remat
+    --remat_policy dots_attn --steps_per_call 2 --log_dir --mirror_file
+    --profile_dir`` on that pretrain corpus trimmed to 18 steps: log rows
+    equal to the mirror's at steps 8 and 16, a trace naming kernels 1 and 2,
+    launches as the code says;
+28. finetune_cli_remat: ``cli.finetune --remat --remat_policy
+    save_attention`` on that category trimmed to 128 users, one epoch a
+    stage: launches as the code says, finite test metrics;
+29. example: ``recformer_tpu_torch.examples.synthetic_end_to_end --device
+    cuda``, its six stages ending in ``ALL STAGES COMPLETE``.
 
 Launch counts, set to 0 just before each path and read just after, show that
 the paths ran the kernels (each kernel on its path at least once; the
@@ -1281,10 +1310,18 @@ def all_on_tensor_cores(what) -> tuple:
     return n, tc
 
 
+def forward_runs(cfg) -> int:
+    """How many times a training step runs each layer's attention forward:
+    twice under a remat policy that does not keep the core's output (the
+    backward recomputes it), else once."""
+    return 2 if cfg.remat and cfg.remat_policy in ("full", "dots") else 1
+
+
 def launches_per_step(cfg) -> dict:
     """Launches of each kernel one pretraining step makes, by reading the
     code: two towers, each one fused (2B, L) forward and its backward; the
-    attention kernels once per layer, the embedding kernels once per tower,
+    attention kernels once per layer (the forward twice under ``forward_runs``),
+    the embedding kernels once per tower,
     the LayerNorm backward twice per layer (the attention and feed-forward
     blocks); the LM head's LayerNorm is flax's under every flag. In bf16
     at the base head width and window every attention forward and backward
@@ -1293,8 +1330,9 @@ def launches_per_step(cfg) -> dict:
     emb = towers if cfg.embed_ln_impl == "pallas" else 0
     D = cfg.hidden_size // cfg.num_attention_heads
     tc = sum(tensor_core_shape(cfg.compute_dtype, D, w, 1) for w in cfg.attention_window)
-    return {"band_attention_fwd": towers * layers, "band_attention_bwd": towers * layers,
-            "band_attention_fwd_tc": towers * tc, "band_attention_bwd_tc": towers * tc,
+    fwd = forward_runs(cfg)
+    return {"band_attention_fwd": fwd * towers * layers, "band_attention_bwd": towers * layers,
+            "band_attention_fwd_tc": fwd * towers * tc, "band_attention_bwd_tc": towers * tc,
             "embed_layernorm_fwd": emb, "embed_layernorm_bwd": emb,
             "layernorm_bwd": 2 * towers * layers if cfg.ln_impl == "pallas_bwd" else 0,
             **{k: 0 for k in PROBE_KERNELS}}
@@ -1526,13 +1564,14 @@ def run_pretrain_ln_kernels_vs_plain(seed):
 def finetune_launches_per_step(cfg) -> dict:
     """Launches of each kernel one finetune or fraud step makes, by reading the code:
     the sequence tower's forward and backward, the attention kernels once
-    per layer each (on the tensor cores in bf16 at the base head width and
-    window), no other kernel."""
+    per layer each (the forward twice under ``forward_runs``; on the tensor
+    cores in bf16 at the base head width and window), no other kernel."""
     layers = cfg.num_hidden_layers
     D = cfg.hidden_size // cfg.num_attention_heads
     tc = sum(tensor_core_shape(cfg.compute_dtype, D, w, 1) for w in cfg.attention_window)
-    return {**{k: 0 for k in COUNTERS}, "band_attention_fwd": layers,
-            "band_attention_bwd": layers, "band_attention_fwd_tc": tc,
+    fwd = forward_runs(cfg)
+    return {**{k: 0 for k in COUNTERS}, "band_attention_fwd": fwd * layers,
+            "band_attention_bwd": layers, "band_attention_fwd_tc": fwd * tc,
             "band_attention_bwd_tc": tc}
 
 
@@ -2696,6 +2735,451 @@ def run_analytics(seed, card, native_build_seconds):
     return {"cluster_cli": counts, "cluster_cli_cached": cached}
 
 
+# ---------------------------------------------------------------------------
+# activation recomputation, the pretrain CLI's host flags, the Amazon
+# pipeline and the example
+# ---------------------------------------------------------------------------
+
+REMAT_POLICIES = ("full", "save_attention", "dots", "dots_attn")
+REMAT_GATE = 1e-5  # each gradient's max|err| / max|ref| against no remat, bf16
+
+
+def policy_config(cfg, policy):
+    """``cfg`` under a remat policy (None: no remat)."""
+    return cfg if policy is None else cfg.replace(remat=True, remat_policy=policy)
+
+
+def model_on_card(cls, cfg, state):
+    """``cls(cfg)`` built on the card with the parameters ``state``."""
+    with torch.device("cuda"):
+        model = cls(cfg)
+    model.load_state_dict(state)
+    return model.eval()
+
+
+def pretrain_grads(cfg, state, world, seed):
+    """The gradients of one base pretraining loss with dropout, drawn from
+    ``StepRNG(seed)``, and where its generators end."""
+    from recformer_tpu_torch.data.device_pipeline import make_pretrain_batch
+    from recformer_tpu_torch.models.heads import RecformerForPretraining
+    from recformer_tpu_torch.training.steps import pretrain_loss
+    from recformer_tpu_torch.utils.rng import StepRNG
+
+    model = model_on_card(RecformerForPretraining, cfg, state)
+    rng = StepRNG(seed, "cuda")
+    batch_a, batch_b = make_pretrain_batch(rng.device, *world, cfg)
+    loss, _ = pretrain_loss(cfg, model(batch_a, batch_b, deterministic=False, rng=rng),
+                            batch_a, batch_b)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    return grads, (rng.host.get_state(), rng.device.get_state())
+
+
+def worst_rel_err(grads, ref) -> float:
+    """The largest max|err| / max|ref| over the gradient tensors (``ref`` on
+    the CPU)."""
+    worst = 0.0
+    for n, r in ref.items():
+        r = r.to(grads[n].device)
+        worst = max(worst, float((grads[n] - r).abs().max() / r.abs().max().clamp_min(1e-30)))
+    return worst
+
+
+def redraw(seed):
+    """A stand-in for ``utils.rng.replay`` that gives the recomputation fresh
+    generators (seeded ``seed``) instead of the first run's: the control
+    that the gradient gate must fail."""
+    from recformer_tpu_torch.utils.rng import replay
+
+    def run(state, fn, *args):
+        fresh = [(g, torch.Generator(g.device).manual_seed(seed).get_state()) for g, _ in state]
+        return replay(fresh, fn, *args)
+
+    return run
+
+
+def run_remat_step(seed, card, phase="remat_step", policies=REMAT_POLICIES, **flags):
+    """The base pretraining step at batch 8 with dropout 0.1 under
+    ``RecformerConfig.base(**flags)``, without remat and under each policy,
+    from one set of weights: kernel 1 and 2 launches a step (3 timed steps
+    after one warm-up), the peak memory of those steps, host-timed steps/s,
+    one profiled step; the gradients of one loss at one ``StepRNG`` seed held
+    to no remat's (each tensor within ``REMAT_GATE``), with both generators
+    ending where no remat's end. The control, ``full`` with a recomputation
+    that redraws, must fail the gate. Returns the launches of the timed
+    steps of every policy, summed."""
+    from recformer_tpu_torch.cli.common import init_model_params
+    from recformer_tpu_torch.config import RecformerConfig
+    from recformer_tpu_torch.models import encoder
+    from recformer_tpu_torch.models.heads import RecformerForPretraining
+    from recformer_tpu_torch.training.optimizer import create_optimizer
+    from recformer_tpu_torch.training.steps import make_pretrain_step
+    from recformer_tpu_torch.utils.rng import StepRNG
+
+    base = RecformerConfig.base(**flags)
+    assert base.attention_probs_dropout_prob == 0.1 and base.hidden_dropout_prob == 0.1
+    B, n = 8, 3
+    world = pretrain_world(base, seed, batch=B)
+    state = init_model_params(RecformerForPretraining(base), base, device="cpu",
+                              seed=seed).state_dict()
+    ref, ref_end = pretrain_grads(base, state, world, seed + 1)
+    ref = {k: v.cpu() for k, v in ref.items()}
+    rows, total = {}, {k: 0 for k in COUNTERS}
+    for policy in (None,) + tuple(policies):
+        cfg = policy_config(base, policy)
+        if policy is None:
+            err, same_end = 0.0, True
+        else:
+            grads, end = pretrain_grads(cfg, state, world, seed + 1)
+            err = worst_rel_err(grads, ref)
+            same_end = all(torch.equal(a, b) for a, b in zip(end, ref_end))
+            del grads
+        torch.cuda.empty_cache()
+        model = model_on_card(RecformerForPretraining, cfg, state)
+        opt = create_optimizer(model, learning_rate=5e-5, warmup_steps=1000, total_steps=10_000)
+        step = make_pretrain_step(cfg, model, opt)
+        rng = StepRNG(seed, "cuda")
+        step(rng, *world)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(rng, *world)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = profile_call(lambda: step(rng, *world))
+        expected = launches_per_step(cfg)
+        per_step = {k: counts[k] / n for k in ("band_attention_fwd", "band_attention_bwd",
+                                               "band_attention_fwd_tc", "band_attention_bwd_tc")}
+        ok = (all(counts[k] == expected[k] * n for k in COUNTERS) and err <= REMAT_GATE
+              and same_end)
+        rows[policy or "none"] = dict(
+            launches_per_step=per_step, expected_per_step={k: expected[k] for k in per_step},
+            peak_memory_gib=peak, steps_per_s=n / secs,
+            device_kernels=prof["device_kernels"], device_busy_ms=prof["device_busy_ms"],
+            profiled_wall_ms=prof["wall_ms"], max_rel_grad_err=err, generators_end_equal=same_end,
+            ok=ok)
+        total = {k: total[k] + counts[k] for k in COUNTERS}
+        del model, opt, step
+        torch.cuda.empty_cache()
+
+    # the control: a recomputation from fresh generators
+    real = encoder.replay
+    encoder.replay = redraw(seed + 99)
+    try:
+        grads, end = pretrain_grads(policy_config(base, "full"), state, world, seed + 1)
+    finally:
+        encoder.replay = real
+    control_err = worst_rel_err(grads, ref)
+    control_end = all(torch.equal(a, b) for a, b in zip(end, ref_end))
+    del grads
+    torch.cuda.empty_cache()
+    peak = {p: r["peak_memory_gib"] for p, r in rows.items()}
+    order = [("full", "save_attention", "<"), ("save_attention", "dots_attn", "<="),
+             ("dots_attn", "none", "<="), ("full", "dots", "<"), ("dots", "dots_attn", "<=")]
+    order_ok = all((peak[a] < peak[b]) if op == "<" else (peak[a] <= peak[b])
+                   for a, b, op in order if a in peak and b in peak)
+    ok = all(r["ok"] for r in rows.values()) and control_err > REMAT_GATE and order_ok
+    emit(phase, config=f"RecformerConfig.base({', '.join(f'{k}={v!r}' for k, v in flags.items())})",
+         batch=B, steps=n, gate=REMAT_GATE, policies=rows,
+         control={"recompute": "fresh generators", "max_rel_grad_err": control_err,
+                  "generators_end_equal": control_end, "fails_gate": control_err > REMAT_GATE},
+         peak_order_ok=order_ok, card=card, ok=ok)
+    if not ok:
+        raise AssertionError(f"{phase}: {rows}, control {control_err}, peak order {peak}")
+    return total
+
+
+def run_remat_finetune_step(seed, card, policies=("save_attention", "full")):
+    """The base finetune step (batch 16, 1,000 sampled negatives,
+    accumulation 8, dropout 0.1) under each remat policy, from one set of
+    weights: kernel 1 and 2 launches a step over 3 steps after a warm-up, and
+    their peak memory. Returns the launches, summed."""
+    from recformer_tpu_torch.cli.common import init_model_params
+    from recformer_tpu_torch.config import RecformerConfig
+    from recformer_tpu_torch.models.heads import RecformerForSeqRec
+    from recformer_tpu_torch.training.optimizer import create_optimizer
+    from recformer_tpu_torch.training.steps import make_finetune_step
+
+    base = RecformerConfig.base(finetune_negative_sample_size=1000)
+    B, n = 16, 3
+    table, item_ids, seq_lens, catalog = finetune_world(base, seed, batch=B)
+    state = init_model_params(RecformerForSeqRec(base), base, device="cpu",
+                              seed=seed).state_dict()
+    rows, total = {}, {k: 0 for k in COUNTERS}
+    for policy in policies:
+        cfg = policy_config(base, policy)
+        model = model_on_card(RecformerForSeqRec, cfg, state)
+        opt = create_optimizer(model, learning_rate=5e-5, warmup_steps=100, total_steps=10_000,
+                               grad_accum_steps=8)
+        step = make_finetune_step(cfg, model, opt)
+        step(seed, table, item_ids, seq_lens, catalog)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        losses = [float(step(seed, table, item_ids, seq_lens, catalog)["loss"]) for _ in range(n)]
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        expected = finetune_launches_per_step(cfg)
+        rows[policy] = dict(
+            launches_per_step={k: counts[k] / n for k in ("band_attention_fwd",
+                                                          "band_attention_bwd")},
+            expected_per_step={k: expected[k] for k in ("band_attention_fwd",
+                                                        "band_attention_bwd")},
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30, steps_per_s=n / secs,
+            ok=(all(counts[k] == expected[k] * n for k in COUNTERS)
+                and all(math.isfinite(x) for x in losses)))
+        total = {k: total[k] + counts[k] for k in COUNTERS}
+        del model, opt, step
+        torch.cuda.empty_cache()
+    ok = all(r["ok"] for r in rows.values())
+    emit("remat_finetune_step", batch=B, negatives=1000, steps=n, policies=rows, card=card,
+         ok=ok)
+    if not ok:
+        raise AssertionError(f"remat_finetune_step: {rows}")
+    return total
+
+
+AMAZON_WORDS = ("steel", "bolt", "nut", "gear", "led", "cap", "fan", "oak", "tin", "zinc",
+                "valve", "pipe", "clamp", "sensor", "meter", "probe", "glove", "tape")
+
+
+def write_amazon_dump(raw, category, n_items, n_users, reviews, seed):
+    """A synthetic raw dump of one category in the Amazon v2 format
+    (``<category>_metadata.jsonl.gz``, ``<category>_reviews.jsonl.gz``):
+    ``n_items`` items, 1% of them without a title, and ``n_users`` users
+    with ``reviews[0]`` to ``reviews[1] - 1`` reviews each, at popularity-
+    skewed items."""
+    import gzip
+
+    rng = np.random.default_rng(seed)
+    words = np.array(AMAZON_WORDS)
+    with gzip.open(os.path.join(raw, f"{category}_metadata.jsonl.gz"), "wt") as f:
+        for i in range(n_items):
+            row = {"asin": f"{category[:3]}{i:06d}", "brand": f"brand{i % 97}",
+                   "category": [category, f"sub{i % 13}"]}
+            if rng.random() >= 0.01:
+                row["title"] = " ".join(rng.choice(words, 4))
+            f.write(json.dumps(row) + "\n")
+    popularity = 1.0 / np.arange(1, n_items + 1) ** 0.8
+    popularity /= popularity.sum()
+    counts = rng.integers(*reviews, size=n_users)
+    items = rng.choice(n_items, size=int(counts.sum()), p=popularity)
+    times = rng.integers(1_300_000_000, 1_600_000_000, size=items.size)
+    users = np.repeat(np.arange(n_users), counts)
+    with gzip.open(os.path.join(raw, f"{category}_reviews.jsonl.gz"), "wt") as f:
+        for u, i, t in zip(users.tolist(), items.tolist(), times.tolist()):
+            f.write(json.dumps({"reviewerID": f"U{u:06d}", "asin": f"{category[:3]}{i:06d}",
+                                "unixReviewTime": t}) + "\n")
+    return int(counts.sum())
+
+
+def run_amazon_pipeline(root, seed, card):
+    """``pipelines.amazon`` on a synthetic raw dump at the smallest paper
+    category's scale (5,300 items, 11,000 users of 5-14 reviews) plus a
+    second category (1,000 items, 2,000 users) as the pretrain corpus's dev
+    split: ``build_pretrain_corpus`` and ``build_finetune_category`` (the
+    seeded 1-in-5 user subsample). Returns (pretrain dir, finetune dir)."""
+    from recformer_tpu_torch.pipelines import amazon
+
+    raw = os.path.join(root, "raw")
+    os.makedirs(raw)
+    cats = ("Industrial_and_Scientific", "Musical_Instruments")
+    t0 = time.perf_counter()
+    n_reviews = [write_amazon_dump(raw, cats[0], 5300, 11_000, (5, 15), seed),
+                 write_amazon_dump(raw, cats[1], 1000, 2000, (5, 10), seed + 1)]
+    dump_secs = time.perf_counter() - t0
+    pre, ft = os.path.join(root, "pretrain"), os.path.join(root, "finetune")
+    t0 = time.perf_counter()
+    amazon.build_pretrain_corpus(cats, raw, pre)
+    pre_secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    amazon.build_finetune_category(os.path.join(raw, f"{cats[0]}_reviews.jsonl.gz"),
+                                   os.path.join(raw, f"{cats[0]}_metadata.jsonl.gz"), ft)
+    ft_secs = time.perf_counter() - t0
+    size = {f"pretrain_{k}": len(read_json(os.path.join(pre, f"{k}.json")))
+            for k in ("train", "dev", "smap", "meta_data")}
+    size.update({f"finetune_{k}": len(read_json(os.path.join(ft, f"{k}.json")))
+                 for k in ("train", "val", "test", "umap", "smap", "meta_data")})
+    ok = (size["pretrain_train"] == 11_000 and size["pretrain_dev"] == 2000
+          and 4000 < size["pretrain_smap"] <= 6300
+          and 1800 < size["finetune_umap"] < 2600
+          and size["finetune_train"] == size["finetune_val"] == size["finetune_umap"])
+    emit("amazon_pipeline", categories=list(cats), reviews=n_reviews, dump_seconds=dump_secs,
+         build_pretrain_corpus_seconds=pre_secs, build_finetune_category_seconds=ft_secs,
+         **size, card=card, ok=ok)
+    if not ok:
+        raise AssertionError(f"amazon_pipeline: {size}")
+    return pre, ft
+
+
+def trimmed_copy(src, dst, keep):
+    """``src``'s artifacts in ``dst`` with every split's first ``keep``
+    entries (lists or dicts) and the whole item metadata."""
+    os.makedirs(dst)
+    for name in os.listdir(src):
+        if not name.endswith(".json"):
+            continue
+        obj = read_json(os.path.join(src, name))
+        if name in keep:
+            obj = obj[:keep[name]] if isinstance(obj, list) else dict(
+                list(obj.items())[:keep[name]])
+        with open(os.path.join(dst, name), "w") as f:
+            json.dump(obj, f)
+    return dst
+
+
+def run_pretrain_cli_host_flags(pre, seed, card):
+    """``cli.pretrain --model_size base --remat --remat_policy dots_attn
+    --steps_per_call 2 --log_dir --mirror_file --profile_dir`` on the Amazon
+    pretrain corpus trimmed to 144 histories (18 steps at batch 8) and 16 dev
+    histories, validating every 8 steps: the log rows equal the mirror's, at
+    the steps the CLI's interval crossings give; the trace names kernel 1's
+    and kernel 2's device kernels; launches as the code says."""
+    from recformer_tpu_torch.cli import pretrain
+    from recformer_tpu_torch.config import RecformerConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = trimmed_copy(pre, os.path.join(tmp, "data"), {"train.json": 144, "dev.json": 16})
+        out = os.path.join(tmp, "out")
+        logs, mirror, prof = (os.path.join(tmp, n) for n in ("logs", "mirror.jsonl", "prof"))
+        reset_counts()
+        t0 = time.perf_counter()
+        res = pretrain.main(["--data_path", data, "--output_dir", out, "--model_size", "base",
+                             "--num_train_epochs", "1", "--batch_size", "8",
+                             "--gradient_accumulation_steps", "2", "--warmup_steps", "1",
+                             "--valid_step_interval", "8", "--save_top_k", "1",
+                             "--seed", str(seed), "--device", "cuda", "--remat",
+                             "--remat_policy", "dots_attn", "--steps_per_call", "2",
+                             "--log_dir", logs, "--mirror_file", mirror,
+                             "--profile_dir", prof])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        cfg = RecformerConfig.load(os.path.join(out, "config.json"))
+        with open(os.path.join(logs, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        with open(mirror) as f:
+            mirrored = [json.loads(line) for line in f]
+        traces = os.listdir(prof)
+        names = set()
+        if len(traces) == 1:
+            with open(os.path.join(prof, traces[0])) as f:
+                names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                         if e.get("cat") == "kernel"}
+    attention = sorted(n for n in names if "band_" in n)
+    per_step = launches_per_step(cfg)
+    # each step's forward and backward; three validations (steps 8 and 16,
+    # the epoch's end) of two dev batches, each the two towers' forward
+    expected = {k: v * res["steps"] for k, v in per_step.items()}
+    for k in ("band_attention_fwd", "band_attention_fwd_tc"):
+        expected[k] += 3 * 2 * per_step[k] // forward_runs(cfg)
+    ok = (res["steps"] == 18 and cfg.remat and cfg.remat_policy == "dots_attn"
+          and rows == mirrored and [(r["step"], sorted(r)) for r in rows]
+          == [(8, ["dev_accuracy", "step", "time"]), (16, ["dev_accuracy", "step", "time"])]
+          and any("band_attention_fwd" in n for n in attention)
+          and any("band_bwd" in n for n in attention) and counts == expected)
+    emit("pretrain_cli_host_flags", **res, seconds=secs, rows=rows,
+         mirror_rows_equal=rows == mirrored, traces=traces, trace_kernels=len(names),
+         trace_attention_kernels=attention, launches=counts, expected_launches=expected,
+         card=card, ok=ok)
+    if not ok:
+        raise AssertionError(f"pretrain_cli_host_flags: {res}, rows {rows}, mirror "
+                             f"{mirrored}, traces {traces}, attention kernels {attention}, "
+                             f"launches {counts} (expected {expected})")
+    return counts
+
+
+def run_finetune_cli_remat(ft, seed, card):
+    """``cli.finetune --model_size base --remat --remat_policy save_attention``
+    on the Amazon category trimmed to 128 users (its whole catalog), one
+    epoch a stage at batch 16: finite test metrics, kernel 1 and 2 launches
+    as the code says (kernel 1 not again in the backward)."""
+    from recformer_tpu_torch.cli import finetune
+
+    n_users, bs, enc_bs, eval_bs, epochs, layers = 128, 16, 256, 32, 1, 12
+    with tempfile.TemporaryDirectory() as tmp:
+        data = trimmed_copy(ft, os.path.join(tmp, "data"),
+                            {"train.json": n_users, "val.json": n_users, "test.json": n_users})
+        n_items = len(read_json(os.path.join(data, "smap.json")))
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = finetune.main(["--data_path", data, "--output_dir", os.path.join(tmp, "out"),
+                                 "--model_size", "base", "--device", "cuda",
+                                 "--num_train_epochs", str(epochs), "--verbose", "1",
+                                 "--batch_size", str(bs), "--gradient_accumulation_steps", "2",
+                                 "--seed", str(seed), "--remat",
+                                 "--remat_policy", "save_attention"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+    steps = epochs * (n_users // bs)
+    forwards = ((1 + epochs) * math.ceil(n_items / enc_bs) + 2 * steps
+                + (2 * epochs + 1) * math.ceil(n_users / eval_bs))
+    expected = {**{k: 0 for k in COUNTERS}, "band_attention_fwd": layers * forwards,
+                "band_attention_fwd_tc": layers * forwards,
+                "band_attention_bwd": layers * 2 * steps,
+                "band_attention_bwd_tc": layers * 2 * steps}
+    ok = (counts == expected and bool(metrics)
+          and all(math.isfinite(v) for v in metrics.values()))
+    emit("finetune_cli_remat", items=n_items, users=n_users, epochs_per_stage=epochs,
+         train_steps=2 * steps, seconds=secs, test_metrics=metrics, launches=counts,
+         expected_launches=expected, card=card, ok=ok)
+    if not ok:
+        raise AssertionError(f"finetune_cli_remat: metrics {metrics}, launches {counts} "
+                             f"(expected {expected})")
+    return counts
+
+
+def run_example(card):
+    """``python -m recformer_tpu_torch.examples.synthetic_end_to_end DIR
+    --device cuda`` (in this process): its six stages at its own sizes end
+    with ``ALL STAGES COMPLETE``. Returns its launches."""
+    import contextlib
+    import io
+
+    from recformer_tpu_torch.examples import synthetic_end_to_end
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            res = synthetic_end_to_end.main([tmp, "--device", "cuda"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+    lines = log.getvalue().strip().splitlines()
+    ok = (bool(lines) and lines[-1] == "ALL STAGES COMPLETE"
+          and counts["band_attention_fwd"] > 0 and counts["band_attention_bwd"] > 0
+          and all(math.isfinite(v) for v in res["finetune"].values()))
+    emit("example", seconds=secs, last_line=lines[-1] if lines else None,
+         finetune_test_metrics=res["finetune"], launches=counts, card=card, ok=ok)
+    if not ok:
+        raise AssertionError(f"example: last lines {lines[-3:]}, launches {counts}")
+    return counts
+
+
+def run_remat_and_host(seed, card):
+    """The remat phases, then the Amazon pipeline and the CLIs on its
+    output, then the example. Returns each main-path phase's launches."""
+    phases = {"remat_step": run_remat_step(seed, card)}
+    phases["remat_step_ln_kernels"] = run_remat_step(
+        seed, card, phase="remat_step_ln_kernels", policies=("full", "save_attention"),
+        embed_ln_impl="pallas", ln_impl="pallas_bwd")
+    phases["remat_finetune_step"] = run_remat_finetune_step(seed, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        pre, ft = run_amazon_pipeline(tmp, seed, card)
+        phases["pretrain_cli_host_flags"] = run_pretrain_cli_host_flags(pre, seed, card)
+        phases["finetune_cli_remat"] = run_finetune_cli_remat(ft, seed, card)
+    phases["example"] = run_example(card)
+    return phases
+
+
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2754,6 +3238,7 @@ def main(argv=None) -> int:
                                                                                  card)
         phases.update(run_fraud(args.seed, card, os.path.join(keep, "best.pt")))
     phases.update(run_analytics(args.seed, card, native_build_seconds))
+    phases.update(run_remat_and_host(args.seed, card))
 
     sources = {"band_attention_fwd": "band_attention_fwd.cu",
                "band_attention_bwd": "band_attention_bwd.cu",

@@ -19,8 +19,8 @@ continued with ``--resume`` (without it the command refuses to start).
 
 ``--pretrain_ckpt`` reads a torch state dict (``cli.pretrain``'s
 ``best.pt``, or an HF/reference ``.bin``): every name and shape match is
-copied, the MLM head is skipped. ``--remat``/``--remat_policy`` are refused:
-the port has no per-layer activation checkpointing yet.
+copied, the MLM head is skipped. ``--remat``/``--remat_policy`` recompute
+each encoder layer in the backward (``models/encoder.py``).
 
     python -m recformer_tpu_torch.cli.finetune --data_path DIR \\
         --pretrain_ckpt pretrain_ckpts/best.pt --output_dir checkpoints --device cuda
@@ -79,10 +79,10 @@ def parse_args(argv=None):
     p.add_argument("--scan_layers", action="store_true", default=None,
                    help="recorded in the config; the port runs the same layer loop either way")
     p.add_argument("--remat", action="store_true", default=None,
-                   help="refused: per-layer activation checkpointing is not ported yet")
+                   help="recompute each encoder layer in the backward (less memory)")
     p.add_argument("--remat_policy", default=None,
                    choices=["full", "save_attention", "dots", "dots_attn"],
-                   help="refused, as --remat")
+                   help="what a recomputed layer keeps (see config.remat_policy)")
     p.add_argument("--pooler_type", choices=["cls", "avg"], default=None,
                    help="sequence pooling: CLS token (default) or masked mean")
     p.add_argument("--max_token_num", type=int, default=None,
@@ -110,10 +110,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.remat or args.remat_policy:
-        raise SystemExit("--remat/--remat_policy: per-layer activation checkpointing that "
-                         "redraws the same dropout masks is not ported yet (ROADMAP Queue 1, "
-                         "item 1); run without them")
     device = resolve_device(args.device)
     train, val, test, meta, item2id, _ = load_finetune_artifacts(args.data_path)
     config = build_config(args, item_num=len(item2id))

@@ -24,7 +24,8 @@ selected parameters in HF names, the head's ``fc1``-``fc3`` included),
 when the run completes. A leftover one is continued with ``--resume``
 (without it the command refuses to start), and refused if the recipe
 (``--learning_rate``, ``--head_lr``) changed. ``--remat``/``--remat_policy``
-are refused; ``--steps_per_call`` is accepted and its steps run back to back.
+recompute each encoder layer in the backward (``models/encoder.py``);
+``--steps_per_call`` is accepted and its steps run back to back.
 
     python -m recformer_tpu_torch.cli.finetune_classification \\
         --data_path DIR/artifacts/classification_data --pretrain_ckpt fraud.pt \\
@@ -108,10 +109,10 @@ def parse_args(argv=None):
     p.add_argument("--scan_layers", action="store_true", default=None,
                    help="recorded in the config; the port runs the same layer loop either way")
     p.add_argument("--remat", action="store_true", default=None,
-                   help="refused: per-layer activation checkpointing is not ported yet")
+                   help="recompute each encoder layer in the backward (less memory)")
     p.add_argument("--remat_policy", default=None,
                    choices=["full", "save_attention", "dots", "dots_attn"],
-                   help="refused, as --remat")
+                   help="what a recomputed layer keeps (see config.remat_policy)")
     p.add_argument("--pooler_type", choices=["cls", "avg"], default=None,
                    help="sequence pooling: CLS token (default) or masked mean")
     p.add_argument("--max_token_num", type=int, default=None,
@@ -137,10 +138,6 @@ def _no_confusion(metrics):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.remat or args.remat_policy:
-        raise SystemExit("--remat/--remat_policy: per-layer activation checkpointing that "
-                         "redraws the same dropout masks is not ported yet (ROADMAP Queue 1, "
-                         "item 1); run without them")
     device = resolve_device(args.device)
     splits = [read_json(os.path.join(args.data_path, f), as_int=True)
               for f in (args.train_file, args.dev_file, args.test_file)]

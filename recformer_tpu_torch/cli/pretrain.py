@@ -3,13 +3,23 @@ device.
 
 Counterpart of ``recformer_tpu/cli/pretrain.py``'s single-device path, with
 its flags plus ``--device`` (default ``cuda``; without a GPU the command
-raises unless ``--device cpu`` is given). ``--remat``/``--remat_policy`` are
-not taken yet: in the port they need per-layer activation checkpointing
-that redraws the same dropout masks in the recomputed forward. Each step builds its batch on the
+raises unless ``--device cpu`` is given). Each step builds its batch on the
 device (pair sampling, two views, whole-word MLM), runs the two towers with
 dropout, and takes an AdamW micro-step; validation on the dev set (the
 contrastive accuracy) runs every ``--valid_step_interval`` steps and after
-every epoch. The parameters are saved as torch state dicts, ``best.pt`` (by
+every epoch. ``--remat``/``--remat_policy`` recompute each encoder layer in
+the backward (``models/encoder.py``). ``--steps_per_call N`` runs N steps
+back to back per call and logs the mean of their metrics (JAX scans them
+in one device launch).
+
+Metric rows, as the JAX CLI writes them: ``loss``, ``accuracy``, the other
+step metrics and ``examples_per_sec`` each time the step count crosses a
+multiple of 50, ``dev_accuracy`` at each ``--valid_step_interval``
+crossing, ``preempted`` at a preemption, each with ``step`` and ``time``,
+in ``--log_dir`` (default ``<output_dir>/logs``) ``/metrics.jsonl`` and
+repeated in ``--mirror_file``. ``--profile_dir`` records steps 10-15 with
+``torch.profiler`` (``utils/profiling.py``) into a Chrome-trace JSON
+there. The parameters are saved as torch state dicts, ``best.pt`` (by
 dev accuracy) and ``last.pt`` in ``--output_dir``, which
 ``cli.common.maybe_load_pretrained`` reads back, and the ``--save_top_k``
 best by dev accuracy under ``--output_dir/topk``.
@@ -32,6 +42,7 @@ key -> attribute dict; ``--item2id_file`` maps item key -> dense id.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import signal
 import time
@@ -50,6 +61,8 @@ from ..training.optimizer import create_optimizer
 from ..training.steps import make_pretrain_eval_step, make_pretrain_step
 from ..utils.device import resolve_device
 from ..utils.io import read_json
+from ..utils.logging import MetricsLogger
+from ..utils.profiling import trace
 from ..utils.rng import StepRNG, fold_in
 from .common import (
     build_config,
@@ -91,6 +104,11 @@ def parse_args(argv=None):
                         "port runs the same layer loop either way")
     p.add_argument("--scan_unroll", type=int, default=None,
                    help="recorded in the config; no effect on the port's layer loop")
+    p.add_argument("--remat", action="store_true", default=None,
+                   help="recompute each encoder layer in the backward (less memory)")
+    p.add_argument("--remat_policy", default=None,
+                   choices=["full", "save_attention", "dots", "dots_attn"],
+                   help="what a recomputed layer keeps (see config.remat_policy)")
     p.add_argument("--pooler_type", choices=["cls", "avg"], default=None,
                    help="sequence pooling: CLS token (default) or masked mean")
     p.add_argument("--max_token_num", type=int, default=None,
@@ -106,6 +124,16 @@ def parse_args(argv=None):
                    help="cap dev validation at this many batches; 0 = the full dev set")
     p.add_argument("--resume", action="store_true",
                    help="resume parameters, optimizer and position from output_dir/state.pt")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of steps 10-15 here")
+    p.add_argument("--steps_per_call", type=int, default=1,
+                   help="run this many steps back to back per call; each log row holds "
+                        "the mean of the call's per-step metrics")
+    p.add_argument("--log_dir", type=str, default=None,
+                   help="metrics directory (metrics.jsonl, and TensorBoard if importable); "
+                        "default output_dir/logs")
+    p.add_argument("--mirror_file", default=None,
+                   help="append-only JSONL mirror of every logged metric row")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' (default) raises without a GPU")
@@ -227,6 +255,10 @@ def main(argv=None):
     preempt = _install_preemption_handler()
     topk = TopKCheckpointManager(os.path.join(args.output_dir, "topk"), k=args.save_top_k,
                                  mode="max")
+    logger = MetricsLogger(args.log_dir or os.path.join(args.output_dir, "logs"),
+                           mirror_path=args.mirror_file)
+    profiling = contextlib.ExitStack()  # the trace of steps 10-15, while it runs
+    traced = False
     last_log_step = global_step
     t0 = time.time()
 
@@ -244,27 +276,51 @@ def main(argv=None):
         save_train_state(state_path, model, optimizer, epoch=epoch, global_step=global_step,
                          best_acc=best_acc)
 
+    def run_steps(pending):
+        """The pending batches' steps back to back; the mean of each metric."""
+        per_step = []
+        for ids, lens in pending:
+            rng = StepRNG(fold_in(args.seed, optimizer.micro_steps), device)
+            per_step.append(step(rng, table, torch.from_numpy(ids).to(device),
+                                 torch.from_numpy(lens).to(device)))
+        return {k: torch.stack([m[k].float() for m in per_step]).mean() for k in per_step[0]}
+
     try:
         for epoch in range(start_epoch, args.num_train_epochs):
+            pending = []
             for batch in train_ds.batches(args.batch_size, shuffle=True, seed=epoch,
                                           drop_last=True):
+                if args.profile_dir and global_step == 10 and not traced:
+                    profiling.enter_context(trace(args.profile_dir, device))
+                    traced = True
                 prev_step = global_step
-                rng = StepRNG(fold_in(args.seed, optimizer.micro_steps), device)
-                metrics = step(rng, table, torch.from_numpy(batch.item_ids).to(device),
-                               torch.from_numpy(batch.seq_lens).to(device))
-                global_step += 1
+                pending.append((batch.item_ids, batch.seq_lens))
+                if len(pending) < args.steps_per_call:
+                    continue
+                metrics = run_steps(pending)
+                pending = []
+                global_step += args.steps_per_call
+                if args.profile_dir and 15 <= global_step < 15 + args.steps_per_call:
+                    profiling.close()
+                # "crossed the interval": with steps_per_call > 1 the count
+                # advances in strides and can skip every multiple
                 if _crossed(50, prev_step, global_step):
                     m = {k: float(v) for k, v in metrics.items()}
                     rate = args.batch_size * (global_step - last_log_step) / (time.time() - t0)
                     t0 = time.time()
                     last_log_step = global_step
+                    m["examples_per_sec"] = rate
+                    logger.log(global_step, m)
                     print(f"[pretrain] step {global_step} loss {m['loss']:.4f} "
                           f"acc {m['accuracy']:.4f} ({rate:.1f} ex/s)")
                 if _crossed(args.valid_step_interval, prev_step, global_step):
-                    print(f"[pretrain] dev accuracy {validate_and_keep_best():.4f}")
+                    acc = validate_and_keep_best()
+                    logger.log(global_step, {"dev_accuracy": acc})
+                    print(f"[pretrain] dev accuracy {acc:.4f}")
                 if preempt["signal"]:
                     save_state(epoch)
                     save_params(os.path.join(args.output_dir, "last.pt"), model)
+                    logger.log(global_step, {"preempted": 1.0})
                     print(f"[pretrain] preemption checkpoint at step {global_step} (signal "
                           f"{preempt['signal']}); restart with --resume (the interrupted epoch "
                           "restarts from its first batch)", flush=True)
@@ -274,6 +330,8 @@ def main(argv=None):
             save_params(os.path.join(args.output_dir, "last.pt"), model)
             save_state(epoch + 1)
     finally:
+        profiling.close()
+        logger.close()
         _restore_handlers(handlers)
     config.save(os.path.join(args.output_dir, "config.json"))
     print(f"[pretrain] done; {global_step} steps, {optimizer.updates} updates; "

@@ -16,8 +16,30 @@ with the hand-written backward kernel (``ops/layernorm.py``) and
 ``'split_bwd'`` the same forward with its plain split backward; the
 parameters are the same under all three. ``attention_impl`` selects the attention core:
 ``'pallas'`` the fused kernel (``ops/window_attention.py``), ``'dense'`` and
-``'chunked'`` the plain twins. ``scan_layers`` and ``remat`` do not change
-the forward math, so the encoder runs the same layer loop under any value.
+``'chunked'`` the plain twins. ``scan_layers`` does not change the forward
+math, so the encoder runs the same layer loop under either value.
+
+Activation recomputation (``remat``, the counterpart of the JAX package's
+``nn.remat`` around each layer with ``_remat_policy``): when grad is enabled
+each layer runs under non-reentrant ``torch.utils.checkpoint``, which keeps
+the layer's input and recomputes the rest in the backward; under
+``torch.no_grad()`` nothing is checkpointed. ``remat_policy`` says what a
+layer keeps besides its input, in a :class:`LayerTape`: ``'full'`` nothing;
+``'save_attention'`` the attention core's output, so that the recomputation
+rebuilds only the projections the backward kernel takes as inputs and never
+launches the forward kernel again; ``'dots'`` the output of every
+``dense()`` product (JAX's ``dots_with_no_batch_dims_saveable``; the batched
+products of the global rows and the attention core are recomputed);
+``'dots_attn'`` both. The kernels launch through ctypes, below the
+dispatcher, so the tape keeps their outputs by hand instead of a
+selective-checkpoint policy over dispatcher ops. Under the plain attention
+twins (``'dense'``, ``'chunked'``) the core's backward needs its
+probabilities, so ``'save_attention'`` recomputes it, as JAX's remat does.
+The recomputation draws what the first run drew
+(``utils.rng.capture``/``replay``: dropout masks and the kernel's seed come
+from a :class:`~recformer_tpu_torch.utils.rng.StepRNG`'s own generators,
+which ``torch.utils.checkpoint`` does not restore) and leaves both
+generators where the first run left them.
 
 Training passes a :class:`~recformer_tpu_torch.utils.rng.StepRNG`: attention
 probabilities take ``attention_probs_dropout_prob`` (in the kernel, or in the
@@ -30,13 +52,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import RecformerConfig
 from ..ops.attention import (_batch_index, chunked_attention, dense_attention,
                              global_prefix_indices, global_rows_thin)
 from ..ops.layernorm import fused_bwd_layernorm, split_layernorm
 from ..ops.window_attention import window_attention
-from ..utils.rng import dropout
+from ..utils.rng import capture, dropout, replay
 
 # The data contract has exactly one global token per sequence (the <s> row).
 _MAX_GLOBALS = 1
@@ -54,9 +77,71 @@ def activation(hidden_act: str):
     raise ValueError(f"unknown hidden_act {hidden_act!r}")
 
 
-def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """flax ``nn.Dense(dtype=...)``: input, kernel and bias in the compute type."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+REMAT_POLICIES = ("full", "save_attention", "dots", "dots_attn")
+
+
+class LayerTape:
+    """What one checkpointed layer keeps for its recomputation under
+    ``policy``: the attention core's output (``attention``), the dense
+    products' (``dots``). :meth:`keep` records each such value in the first
+    run and hands it back, in the same order, in the recomputation."""
+
+    def __init__(self, policy: str):
+        if policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {policy!r}")
+        self.attention = policy in ("save_attention", "dots_attn")
+        self.dots = policy in ("dots", "dots_attn")
+        self._runs = 0
+        self._kept = []
+        self._next = 0
+
+    def start(self) -> bool:
+        """Begin a run of the layer; True for the first (which records)."""
+        self._runs += 1
+        self._next = 0
+        return self._runs == 1
+
+    def keep(self, compute):
+        """``compute(None)`` in the first run, whose result is kept;
+        ``compute(kept)`` in the recomputation."""
+        if self._runs == 1:
+            out = compute(None)
+            self._kept.append(out.detach())
+            return out
+        out = compute(self._kept[self._next])
+        self._next += 1
+        return out
+
+
+class _Dense(torch.autograd.Function):
+    """``F.linear`` that returns ``out`` when given one (a product kept by a
+    :class:`LayerTape`), with autograd's own backward of ``F.linear`` on a
+    contiguous input (its ``addmm``: the same products in the same layout),
+    so kept and recomputed products give the same gradients."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, out):
+        ctx.save_for_backward(x, w)
+        return F.linear(x, w, b) if out is None else out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        gx = g2.mm(w).view(x.shape) if ctx.needs_input_grad[0] else None
+        gw = g2.t().mm(x.reshape(-1, x.shape[-1])) if ctx.needs_input_grad[1] else None
+        gb = g2.sum(0) if ctx.needs_input_grad[2] else None
+        return gx, gw, gb, None
+
+
+def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype,
+          tape: LayerTape | None = None) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=...)``: input, kernel and bias in the compute
+    type; its output kept by ``tape`` when the policy keeps products."""
+    args = (x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    if tape is None or not tape.dots:
+        return F.linear(*args)
+    return tape.keep(lambda kept: _Dense.apply(*args, kept))
 
 
 def block_layernorm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
@@ -83,7 +168,8 @@ class LongformerSelfAttention(nn.Module):
         for name in ("query", "key", "value", "query_global", "key_global", "value_global"):
             setattr(self, name, _linear(config, hs, hs))
 
-    def forward(self, hidden: torch.Tensor, mask: torch.Tensor, rng=None) -> torch.Tensor:
+    def forward(self, hidden: torch.Tensor, mask: torch.Tensor, rng=None,
+                tape: LayerTape | None = None) -> torch.Tensor:
         cfg = self.config
         B, L, hs = hidden.shape
         H, D = cfg.num_attention_heads, cfg.head_dim
@@ -94,13 +180,13 @@ class LongformerSelfAttention(nn.Module):
         def heads(x):
             return x.reshape(B, -1, H, D)
 
-        q = heads(dense(hidden, self.query, dt))
-        k = heads(dense(hidden, self.key, dt))
-        v = heads(dense(hidden, self.value, dt))
+        q = heads(dense(hidden, self.query, dt, tape))
+        k = heads(dense(hidden, self.key, dt, tape))
+        v = heads(dense(hidden, self.value, dt, tape))
         # query_global projects only the gathered global row
         gidx, _ = global_prefix_indices(mask, _MAX_GLOBALS)
         hid_g = hidden[_batch_index(gidx), gidx]  # (B, G, hs)
-        q_g = heads(dense(hid_g, self.query_global, dt))
+        q_g = heads(dense(hid_g, self.query_global, dt, tape))
 
         rate = cfg.attention_probs_dropout_prob if rng is not None else 0.0
         gen = rng.device if rng is not None else None
@@ -113,8 +199,8 @@ class LongformerSelfAttention(nn.Module):
                 self.value_global.weight.t(), self.value_global.bias, mask, dt,
                 _MAX_GLOBALS, rate, gen, compact=(cfg.attention_impl == "pallas"))
         else:
-            k_g = heads(dense(hidden, self.key_global, dt))
-            v_g = heads(dense(hidden, self.value_global, dt))
+            k_g = heads(dense(hidden, self.key_global, dt, tape))
+            v_g = heads(dense(hidden, self.value_global, dt, tape))
 
         if cfg.attention_impl == "dense":
             out = dense_attention(q, k, v, q_g, k_g, v_g, mask, self.window, rate, gen,
@@ -127,7 +213,8 @@ class LongformerSelfAttention(nn.Module):
             out = window_attention(q, k, v, q_g, k_g, v_g, mask, self.window,
                                    dropout_rate=rate, generator=gen,
                                    host_generator=rng.host if rng is not None else None,
-                                   g_out=g_out)
+                                   g_out=g_out,
+                                   tape=tape if tape is not None and tape.attention else None)
         return out.reshape(B, L, hs)
 
 
@@ -146,10 +233,11 @@ class BlockOutput(nn.Module):
         self.LayerNorm = nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps,
                                       dtype=config.params_dtype)
 
-    def forward(self, x: torch.Tensor, residual: torch.Tensor, rng=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: torch.Tensor, rng=None,
+                tape: LayerTape | None = None) -> torch.Tensor:
         cfg = self.config
         dt = cfg.compute_dtype
-        x = dropout(dense(x, self.dense, dt), cfg.hidden_dropout_prob, rng)
+        x = dropout(dense(x, self.dense, dt, tape), cfg.hidden_dropout_prob, rng)
         x = x + residual.to(dt)
         ln = self.LayerNorm
         if cfg.ln_impl in _BLOCK_LAYERNORMS:
@@ -164,8 +252,8 @@ class AttentionBlock(nn.Module):
         self.self = LongformerSelfAttention(config, window)
         self.output = BlockOutput(config, config.hidden_size)
 
-    def forward(self, hidden, mask, rng=None):
-        return self.output(self.self(hidden, mask, rng), hidden, rng)
+    def forward(self, hidden, mask, rng=None, tape=None):
+        return self.output(self.self(hidden, mask, rng, tape), hidden, rng, tape)
 
 
 class Intermediate(nn.Module):
@@ -175,8 +263,8 @@ class Intermediate(nn.Module):
         self.dense = _linear(config, config.hidden_size, config.intermediate_size)
         self.act = activation(config.hidden_act)
 
-    def forward(self, hidden):
-        return self.act(dense(hidden, self.dense, self.config.compute_dtype))
+    def forward(self, hidden, tape=None):
+        return self.act(dense(hidden, self.dense, self.config.compute_dtype, tape))
 
 
 class EncoderLayer(nn.Module):
@@ -189,17 +277,38 @@ class EncoderLayer(nn.Module):
         self.intermediate = Intermediate(config)
         self.output = BlockOutput(config, config.intermediate_size)
 
-    def forward(self, hidden, mask, rng=None):
-        hidden = self.attention(hidden, mask, rng)
-        return self.output(self.intermediate(hidden), hidden, rng)
+    def forward(self, hidden, mask, rng=None, tape=None):
+        hidden = self.attention(hidden, mask, rng, tape)
+        return self.output(self.intermediate(hidden, tape), hidden, rng, tape)
+
+
+def remat_layer(layer: EncoderLayer, hidden, mask, rng, policy: str):
+    """``layer(hidden, mask, rng)`` under non-reentrant
+    ``torch.utils.checkpoint``, keeping what ``policy`` says (a
+    :class:`LayerTape`). The recomputation replays the generators of ``rng``
+    from where the first run found them."""
+    tape = LayerTape(policy)
+    drawn = capture(rng)
+
+    def run(h):
+        if tape.start():
+            return layer(h, mask, rng, tape)
+        return replay(drawn, layer, h, mask, rng, tape)
+
+    return checkpoint(run, hidden, use_reentrant=False)
 
 
 class LongformerEncoder(nn.Module):
     def __init__(self, config: RecformerConfig):
         super().__init__()
+        self.config = config
         self.layer = nn.ModuleList(EncoderLayer(config, w) for w in config.attention_window)
 
     def forward(self, hidden, mask, rng=None):
+        remat = self.config.remat and torch.is_grad_enabled()
         for layer in self.layer:
-            hidden = layer(hidden, mask, rng)
+            if remat:
+                hidden = remat_layer(layer, hidden, mask, rng, self.config.remat_policy)
+            else:
+                hidden = layer(hidden, mask, rng)
         return hidden

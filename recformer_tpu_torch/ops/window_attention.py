@@ -422,14 +422,18 @@ def band_attention_bwd(q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, dout,
 
 class _BandCore(torch.autograd.Function):
     """The band core with the backward kernel as its gradient. Like the JAX
-    VJP, it saves its inputs and the seed, not the probabilities."""
+    VJP, it saves its inputs and the seed, not the probabilities. Given
+    ``out``, the output an earlier run computed from these inputs, it
+    returns that and launches nothing: the backward needs only the inputs."""
 
     @staticmethod
     def forward(ctx, q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, num_heads, window,
-                fuse_epilogue, dropout_rate, seed):
+                fuse_epilogue, dropout_rate, seed, out):
         args = (q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, num_heads, window,
                 fuse_epilogue, dropout_rate, seed)
-        if q2.is_cuda:
+        if out is not None:
+            pass
+        elif q2.is_cuda:
             out = _launch(*args)
         elif q2.device.type == "cpu":
             out = window_attention_plain(*args)
@@ -445,18 +449,20 @@ class _BandCore(torch.autograd.Function):
         dq, dk, dv, dgk, dgv, dgout = band_attention_bwd(
             q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, dout, *ctx.config)
         return (dq, dk, dv, None, dgk.to(gk.dtype), dgv.to(gv.dtype), None, None,
-                dgout.to(gout.dtype), None, None, None, None, None)
+                dgout.to(gout.dtype), None, None, None, None, None, None)
 
 
 def band_attention(q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, num_heads: int,
                    window: int, fuse_epilogue: bool, dropout_rate: float = 0.0,
-                   seed: int = 0):
+                   seed: int = 0, out=None):
     """The forward kernel's wrapper over ``(B, L, H*D)`` operands (arguments
     as in :func:`window_attention_plain`), differentiable through the
     backward kernel. CPU tensors take the plain versions; CUDA tensors launch
-    the kernels or raise."""
+    the kernels or raise. ``out``, when given, is this call's output from an
+    earlier run on the same inputs (a recomputed forward): it is returned
+    with the same backward, and the forward kernel is not launched."""
     return _BandCore.apply(q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, num_heads,
-                           window, bool(fuse_epilogue), float(dropout_rate), int(seed))
+                           window, bool(fuse_epilogue), float(dropout_rate), int(seed), out)
 
 
 def prepare_band_inputs(q, k, v, mask, max_globals: int = 1):
@@ -492,7 +498,7 @@ def draw_seed(host_generator: torch.Generator) -> int:
 
 def window_attention(q, k, v, q_g, k_g, v_g, mask, window: int, max_globals: int = 1,
                      dropout_rate: float = 0.0, generator=None, host_generator=None,
-                     g_out=None):
+                     g_out=None, tape=None):
     """Same contract as :func:`attention.dense_attention`, through the fused
     kernels. ``g_out`` may be the compact ``(B, G, H, D)`` global-row output
     (taken by the fused epilogue when G == 1) or the scattered
@@ -504,7 +510,13 @@ def window_attention(q, k, v, q_g, k_g, v_g, mask, window: int, max_globals: int
     ``host_generator`` (a CPU ``torch.Generator``), and the global rows, when
     computed here, take their dropout from ``generator`` (on the tensors'
     device), split as the JAX wrapper splits its key into band and global
-    parts."""
+    parts.
+
+    ``tape``, when given, holds the band core's output through activation
+    recomputation (``models/encoder.py``'s ``LayerTape``):
+    ``tape.keep(compute)`` calls ``compute(None)`` in the first run (the
+    kernel runs) and ``compute(kept)`` in the recomputation, with the output
+    the first run kept (the kernel does not run again)."""
     B, L, H, D = q.shape
     dt = q.dtype
     scale = attention_scale(D, dt, q.device)
@@ -524,13 +536,15 @@ def window_attention(q, k, v, q_g, k_g, v_g, mask, window: int, max_globals: int
             g_out = _global_rows(q_g, k_g, v_g, mask, scale, dt, max_globals,
                                  dropout_rate, gen_glb, compact=True)
         gout2 = g_out.reshape(B, max_globals, H * D).to(dt)
-        out2 = band_attention(**ops, gout=gout2, num_heads=H, window=window,
-                              fuse_epilogue=True, **drop)
+        core = functools.partial(band_attention, **ops, gout=gout2, num_heads=H,
+                                 window=window, fuse_epilogue=True, **drop)
+        out2 = tape.keep(lambda kept: core(out=kept)) if tape is not None else core()
         return out2.view(B, L, H, D)
 
     placeholder = torch.zeros((B, max_globals, H * D), dtype=dt, device=q.device)
-    out2 = band_attention(**ops, gout=placeholder, num_heads=H, window=window,
-                          fuse_epilogue=False, **drop)
+    core = functools.partial(band_attention, **ops, gout=placeholder, num_heads=H,
+                             window=window, fuse_epilogue=False, **drop)
+    out2 = tape.keep(lambda kept: core(out=kept)) if tape is not None else core()
     out = out2.view(B, L, H, D)
     if g_out is None:
         g_out = _global_rows(q_g, k_g, v_g, mask, scale, dt, max_globals,

@@ -10,6 +10,13 @@ On the CPU the two are one generator.
 A step whose draws must not depend on what ran before it (so that a resumed
 run draws what the uninterrupted run drew) makes its ``StepRNG`` from
 ``fold_in(seed, step)``, as JAX folds the step into its key.
+
+Activation recomputation runs a layer's forward a second time in the
+backward and must draw there exactly what the first run drew:
+:func:`capture` notes where both generators stand before the first run and
+:func:`replay` runs the recomputation from there, then puts the generators
+back where it found them (``torch.utils.checkpoint`` stashes only the
+default generators, never these).
 """
 
 from __future__ import annotations
@@ -38,6 +45,30 @@ class StepRNG:
             self.device = self.host
         else:
             self.device = torch.Generator(dev).manual_seed(int(seed))
+
+
+def capture(rng):
+    """Where the generators of ``rng`` (a :class:`StepRNG`, or None) stand
+    now: a list of (generator, state)."""
+    if rng is None:
+        return []
+    gens = [rng.host] if rng.device is rng.host else [rng.host, rng.device]
+    return [(g, g.get_state()) for g in gens]
+
+
+def replay(state, fn, *args):
+    """Set the generators back to ``state`` (from :func:`capture`), run
+    ``fn(*args)`` and return its result, then put the generators back where
+    this call found them: ``fn`` draws what it drew when ``state`` was
+    captured, and the stream goes on as if it had not run again."""
+    found = [(g, g.get_state()) for g, _ in state]
+    for g, s in state:
+        g.set_state(s)
+    try:
+        return fn(*args)
+    finally:
+        for g, s in found:
+            g.set_state(s)
 
 
 def dropout(x: torch.Tensor, rate: float, rng) -> torch.Tensor:

@@ -151,19 +151,14 @@ def test_finetuned_model_carries_into_the_jax_tree(finetuned):
 
 
 def test_finetune_cli_refusals(tmp_path):
-    """A stale ``loop_state/`` without ``--resume`` exits; ``--remat`` and
-    ``--remat_policy`` exit; without ``--device`` and without CUDA the
-    command raises."""
+    """A stale ``loop_state/`` without ``--resume`` exits; without
+    ``--device`` and without CUDA the command raises."""
     data = write_corpus(tmp_path / "data")
     out = tmp_path / "out"
     os.makedirs(out / "data" / "loop_state")
     (out / "data" / "loop_state" / "loop.json").write_text("{}")
     with pytest.raises(SystemExit, match="--resume"):
         finetune.main(["--data_path", data, "--output_dir", str(out)] + FT)
-    for flag in (["--remat"], ["--remat_policy", "dots"]):
-        with pytest.raises(SystemExit, match="remat"):
-            finetune.main(["--data_path", data, "--output_dir", str(tmp_path / "o2")] + FT
-                          + flag)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             finetune.main(["--data_path", data, "--model_size", "tiny",

@@ -25,7 +25,8 @@ def test_importing_every_module_loads_no_jax():
                  "training.checkpoint", "utils.logging", "cli.finetune_classification",
                  "cli.convert_ckpt", "pipelines.transactional",
                  "pipelines.synthetic_transactions", "native", "pipelines.synthetic",
-                 "utils.clustering", "cli.cluster"):
+                 "utils.clustering", "cli.cluster", "pipelines.amazon", "utils.profiling",
+                 "examples.synthetic_end_to_end"):
         assert f"recformer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -59,7 +60,8 @@ def test_sources_name_no_jax():
             "timing.py", "finetune.py", "checkpoint.py", "logging.py",
             "profile_torch_finetune.py", "finetune_classification.py", "convert_ckpt.py",
             "transactional.py", "synthetic_transactions.py", "batcher.cpp", "tokenizer.cpp",
-            "synthetic.py", "clustering.py", "cluster.py"} <= names
+            "synthetic.py", "clustering.py", "cluster.py", "amazon.py", "profiling.py",
+            "synthetic_end_to_end.py"} <= names
     for path in sources:
         with open(path) as f:
             text = f.read()
