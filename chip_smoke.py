@@ -63,7 +63,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    (64 users, a fresh catalog, then encode_items' saved catalog: the same
    metrics) at base width under ``--embed_ln_impl pallas``, launches of
    kernels 1 and 3 as the code says;
-10. pretrain_step: 20 base-width pretraining steps at batch 8 (two views,
+10. pretrain_step: 10 base-width pretraining steps at batch 8 (two views,
     fused clean+MLM towers, dropout 0.1, AdamW), steps/s, the whole-word
     MLM's time, peak memory, the device kernels of one step
     (``torch.profiler``); then 10 steps on one fixed batch with dropout
@@ -93,7 +93,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     the attention kernels against the chunked twin (the gate of 11, and the
     pooled outputs' cosine > 0.999);
 15. finetune_cli, finetune_cli_resume: ``cli.finetune --model_size base
-    --device cuda`` on 2,048 items and 128 users (histories of 16-50 items),
+    --device cuda`` on 512 items and 32 users (histories of 16-50 items),
     two epochs a stage: outputs written, finite test metrics, kernel 1 and 2
     launches as the code says (encodes, train steps, dev and test ranking);
     then a run stopped at its first stage-2 dev row and continued with
@@ -152,7 +152,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     one set of weights, without remat and under ``full``,
     ``save_attention``, ``dots`` and ``dots_attn``: kernel 1 and 2
     launches a step (48/24 under ``full`` and ``dots``, 24/24 otherwise),
-    the peak memory of 3 steps, host-timed steps/s, one profiled step
+    the peak memory of 2 steps, host-timed steps/s, one profiled step
     (device kernels, busy ms); the gradients of one loss at one ``StepRNG``
     seed within 1e-5 (max|err| / max|ref|, each tensor) of no remat's, the
     generators ending where no remat's end; the control, a recomputation
@@ -176,14 +176,51 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     save_attention`` on that category trimmed to 128 users, one epoch a
     stage: launches as the code says, finite test metrics;
 29. example: ``recformer_tpu_torch.examples.synthetic_end_to_end --device
-    cuda``, its six stages ending in ``ALL STAGES COMPLETE``.
+    cuda``, its six stages ending in ``ALL STAGES COMPLETE``;
+30. a world of 2 ranks on the card, started with ``torch.distributed.run
+    --standalone`` (this script in rank mode; ``gloo`` with CUDA tensors,
+    since NCCL refuses two ranks on one device): dist_check, each
+    collective of ``parallel/collectives.py`` against local arithmetic, bit
+    for bit; dp_pretrain_step, base width, batch 8 a rank, dropout 0.1,
+    ``contrastive_gradient='full'``, 2 warm-up + 10 timed steps (each
+    rank's launches a step, 24/24 on the tensor cores, peak GiB, steps/s),
+    then the float32 gradients of one deterministic step over the 2 ranks
+    (a global batch of 8, 4 a rank) against the one-rank step on that batch
+    (the gate of 11); dp_local_step, ``'local'`` on one fixed batch without
+    dropout, whose loss must fall; zero_step, ZeRO's launches and AdamW
+    state a rank beside plain DP's (the share the placement rule predicts),
+    its updates bit-equal to plain DP's given the same gradients; tp_step,
+    model 2 at batch 8 with dropout, both ``global_kv_mode``s, 6 heads a
+    rank, 24/24 on the tensor cores, the replicated tensors equal across the
+    ranks, the gathered float32 gradients against the one-rank step;
+    sharded_catalog: 10,000 and 10,001 rows of 768 over the 2 ranks against
+    the dense path: ranks, ``valid_length`` and top-k ids exact, scores and
+    loss within 1e-5, the loss's gradient in ``pooled`` within 1e-5
+    relative, and no padded id for users whose every score is negative;
+31. dp_tp_step_ln_kernels: a world of 4 (data 2 x model 2) under
+    ``embed_ln_impl='pallas'``, ``ln_impl='pallas_bwd'`` and ``--remat
+    --remat_policy save_attention``, 5 steps: launches a step as the code
+    says (kernel 1 not relaunched in the backward), each LayerNorm launch
+    one device kernel;
+32. parallel_clis, run by the world of 2 after its other phases, one
+    command after another: ``cli.evaluate_seq --sharded_eval 2`` (float32; 1,001
+    items, one padding row) within 1e-5 of one rank; ``cli.serve`` on 2
+    ranks, the same ids as one rank; ``cli.pretrain --model_size base
+    --tensor_parallel 2``, its ``best.pt`` whole and read by a one-rank
+    ``cli.finetune`` for one epoch a stage; ``cli.pretrain --zero`` on 2
+    data ranks with a SIGTERM on rank 1 alone after step 5: both ranks stop
+    at step 5, and ``--resume`` runs to the end;
+33. parallel_dryrun: ``parallel/dryrun.py``'s ``dryrun`` (what ``python -m
+    recformer_tpu_torch.parallel.dryrun`` runs) at the end of the worlds of 2
+    and 4: every step's loss finite and equal on every rank.
 
 Launch counts, set to 0 just before each path and read just after, show that
 the paths ran the kernels (each kernel on its path at least once; the
 probes' path is probe_time), as many times as the code says they must (the
 attention kernels' tensor-core launches among them: every forward of
 serving, all 24 forwards and 24 backwards of a bf16 pretraining step and
-the 12 and 12 of a finetune or fraud step). Then the command time, the kernels line,
+the 12 and 12 of a finetune or fraud step; the ranks of 30-32 report theirs,
+added over the ranks). Then the command time, the kernels line,
 the card line and, last, the result line. Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
 result.
@@ -219,8 +256,12 @@ BASE_SHAPES = {"item_tower": (256, 128), "sequence_tower": (16, 1024)}  # (B, L)
 ANALYTICS_SHAPE = {"analytics_tower": (64, 1024)}
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the script's seconds so far (``at_s``)."""
+    print(json.dumps({"phase": phase, **kw, "at_s": time.perf_counter() - T_START}), flush=True)
 
 
 def synthetic_table(cfg, n_items: int, seed: int):
@@ -699,12 +740,14 @@ def device_kernels(events) -> list:
             and not getattr(e, "is_user_annotation", False)]
 
 
-def kernels_per_call(fn) -> list:
+def kernels_per_call(fn, warm: bool = True) -> list:
     """The names of the device kernels one call of ``fn`` runs (after a
-    warm-up call), from a ``torch.profiler`` trace."""
+    warm-up call, unless ``warm`` is False: ``fn`` ran already), from a
+    ``torch.profiler`` trace."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
@@ -1339,7 +1382,7 @@ def launches_per_step(cfg) -> dict:
 
 
 def run_pretrain_step(seed, card, phase="pretrain_step", baseline=None, **flags):
-    """20 timed base-width pretraining steps (after 2 warm-up steps) with
+    """10 timed base-width pretraining steps (after 2 warm-up steps) with
     dropout 0.1 under ``RecformerConfig.base(**flags)``, launch counts per
     step, then 10 steps on one fixed batch with dropout off, whose loss must
     fall. Returns the launch counts and the rates."""
@@ -1363,7 +1406,7 @@ def run_pretrain_step(seed, card, phase="pretrain_step", baseline=None, **flags)
         step(rng, table, item_ids, seq_lens)
     torch.cuda.synchronize()
 
-    n = 20
+    n = 10
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -1424,7 +1467,7 @@ def run_pretrain_step(seed, card, phase="pretrain_step", baseline=None, **flags)
 
 
 def run_pretrain_turns(seed, card, blocks=("default", "ln_kernels", "ln_kernels", "default"),
-                       steps=10):
+                       steps=3):
     """The default configuration and the LayerNorm kernels' configuration
     timed in turns in one process (``blocks`` of ``steps`` steps each, after
     2 warm-up steps of each), so that drift over the call falls on both."""
@@ -1727,8 +1770,8 @@ class _Interrupt(Exception):
 
 
 def run_finetune_cli(seed, card):
-    """``cli.finetune --model_size base --device cuda`` on a corpus of 2,048
-    items and 128 users with histories of 16-50 items: two epochs a stage,
+    """``cli.finetune --model_size base --device cuda`` on a corpus of 512
+    items and 32 users with histories of 16-50 items: two epochs a stage,
     dev ranking every epoch, batch 16, accumulation 2, otherwise the
     defaults (1,000 sampled negatives). The outputs must be written, the
     test metrics finite, and kernels 1 and 2 launched exactly as the code
@@ -1740,7 +1783,7 @@ def run_finetune_cli(seed, card):
     from recformer_tpu_torch.cli import finetune
     from recformer_tpu_torch.training import loops
 
-    n_items, n_users, bs, enc_bs, eval_bs, epochs, layers = 2048, 128, 16, 256, 32, 2, 12
+    n_items, n_users, bs, enc_bs, eval_bs, epochs, layers = 512, 32, 16, 256, 32, 2, 12
     steps = epochs * (n_users // bs)  # a stage
     enc_fw, eval_fw = math.ceil(n_items / enc_bs), math.ceil(n_users / eval_bs)
 
@@ -2801,7 +2844,7 @@ def redraw(seed):
 def run_remat_step(seed, card, phase="remat_step", policies=REMAT_POLICIES, **flags):
     """The base pretraining step at batch 8 with dropout 0.1 under
     ``RecformerConfig.base(**flags)``, without remat and under each policy,
-    from one set of weights: kernel 1 and 2 launches a step (3 timed steps
+    from one set of weights: kernel 1 and 2 launches a step (2 timed steps
     after one warm-up), the peak memory of those steps, host-timed steps/s,
     one profiled step; the gradients of one loss at one ``StepRNG`` seed held
     to no remat's (each tensor within ``REMAT_GATE``), with both generators
@@ -2818,7 +2861,7 @@ def run_remat_step(seed, card, phase="remat_step", policies=REMAT_POLICIES, **fl
 
     base = RecformerConfig.base(**flags)
     assert base.attention_probs_dropout_prob == 0.1 and base.hidden_dropout_prob == 0.1
-    B, n = 8, 3
+    B, n = 8, 2
     world = pretrain_world(base, seed, batch=B)
     state = init_model_params(RecformerForPretraining(base), base, device="cpu",
                               seed=seed).state_dict()
@@ -3180,14 +3223,768 @@ def run_remat_and_host(seed, card):
     return phases
 
 
+# ---------------------------------------------------------------------------
+# data and tensor parallelism over torch.distributed: worlds of ranks on the
+# one card (``gloo`` with CUDA tensors: NCCL refuses two ranks on one device)
+# ---------------------------------------------------------------------------
+
+RANK_TIMEOUT_S = 300  # every process group's timeout in the worlds below
+
+
+def spawn_world(nproc: int, rank_args, timeout: float):
+    """``python -m torch.distributed.run --standalone`` over ``nproc`` ranks
+    of this script in rank mode with ``rank_args``; returns each rank's
+    results and the world's output. A world that fails or outlives
+    ``timeout`` is killed whole and raises."""
+    import subprocess
+
+    out_dir = tempfile.mkdtemp(prefix="world_")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), os.path.abspath(__file__), "--rank-out", out_dir, *rank_args]
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"world of {nproc} ({rank_args}) timed out:\n{out[-8000:]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"world of {nproc} ({rank_args}) exited {proc.returncode}:\n"
+                             f"{out[-8000:]}")
+    results = []
+    for r in range(nproc):
+        path = os.path.join(out_dir, f"rank{r}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                results.append(json.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return results, out
+
+
+def digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().view(torch.uint8).numpy()).hexdigest()
+
+
+def add_counts(per_rank) -> dict:
+    return {k: sum(r[k] for r in per_rank) for k in COUNTERS}
+
+
+def rank_dist_check(mesh) -> dict:
+    """Each collective of ``parallel/collectives.py`` on CUDA tensors against
+    local arithmetic, bit for bit (sums of two terms are exact in any order)."""
+    from recformer_tpu_torch.parallel import collectives as C
+
+    g, n, r = mesh.data_group, mesh.n_data, mesh.data_rank
+
+    def x_of(k):
+        return (torch.arange(12, dtype=torch.float32, device="cuda").view(3, 4) + 100.0 * k) / 7
+
+    def w_of(k):
+        return torch.linspace(-1, 1, 12 * n, device="cuda").view(3 * n, 4) * (k + 1)
+
+    whole = torch.cat([x_of(k) for k in range(n)])
+    rows = slice(3 * r, 3 * r + 3)
+    checks = {}
+    x = x_of(r).requires_grad_()
+    y = C.all_gather(x, g)
+    (y * w_of(r)).sum().backward()
+    checks["all_gather"] = torch.equal(y, whole)
+    checks["all_gather_backward_psum_scatter"] = torch.equal(
+        x.grad, sum(w_of(k) for k in range(n))[rows])
+    x = x_of(r).requires_grad_()
+    y = C.all_gather_local(x, g)
+    (y * w_of(r)).sum().backward()
+    checks["all_gather_local"] = torch.equal(y, whole) and torch.equal(x.grad, w_of(r)[rows])
+    x = x_of(r).requires_grad_()
+    y = C.psum(x, g)
+    (3 * y).sum().backward()
+    checks["psum"] = (torch.equal(y, sum(x_of(k) for k in range(n)))
+                      and torch.equal(x.grad, torch.full_like(x, 3.0)))
+    checks["pmean"] = torch.equal(C.pmean(x_of(r), g), sum(x_of(k) for k in range(n)) / n)
+    x = x_of(r).requires_grad_()
+    y = C.copy_to(x, g)
+    (y * w_of(r)[:3]).sum().backward()
+    checks["copy_to"] = (torch.equal(y, x_of(r))
+                         and torch.equal(x.grad, sum(w_of(k)[:3] for k in range(n))))
+    checks["pmax"] = torch.equal(C.pmax(x_of(r), g), x_of(n - 1))
+    checks["broadcast"] = torch.equal(C.broadcast(x_of(r), 1, g), x_of(1))
+    ts = [x_of(r), torch.full((5,), r + 1, dtype=torch.int64, device="cuda")]
+    C.all_reduce_(ts, g)
+    checks["all_reduce_coalesced"] = (
+        torch.equal(ts[0], sum(x_of(k) for k in range(n)))
+        and torch.equal(ts[1], torch.full_like(ts[1], n * (n + 1) // 2)))
+    return dict(checks=checks, backend=mesh.backend)
+
+
+_SEEDED = {}
+
+
+def seeded_model(cls, cfg, seed):
+    """``cls(cfg)`` on the card with the weights ``init_model_params`` gives
+    it from ``seed`` (drawn once per class and seed in this process, then
+    copied: every base configuration has the same parameters)."""
+    from recformer_tpu_torch.cli.common import init_model_params
+
+    key = (cls.__name__, seed)
+    if key not in _SEEDED:
+        _SEEDED[key] = init_model_params(cls(cfg), cfg, device="cpu", seed=seed).state_dict()
+    return model_on_card(cls, cfg, _SEEDED[key])
+
+
+def rank_train(cfg, mesh, seed, batch, warmup, steps, zero=False, lr=5e-5, fixed_seed=None):
+    """A model from ``seed`` and ``steps`` timed steps of ``make_pretrain_step``
+    over ``mesh`` (after ``warmup``): launch counts and peak memory of this
+    rank, losses, steps/s. ``fixed_seed``: the same draws every step."""
+    from recformer_tpu_torch.models.heads import RecformerForPretraining
+    from recformer_tpu_torch.parallel.tensor import shard_model_tp
+    from recformer_tpu_torch.training.optimizer import create_optimizer
+    from recformer_tpu_torch.training.steps import make_pretrain_step
+    from recformer_tpu_torch.utils.rng import StepRNG, fold_in
+
+    table, ids, lens = pretrain_world(cfg, seed, batch=batch)
+    model = seeded_model(RecformerForPretraining, cfg, seed)
+    if mesh.n_model > 1:
+        shard_model_tp(model, mesh)
+    opt = create_optimizer(model, learning_rate=lr,
+                           warmup_steps=1000 if fixed_seed is None else 2,
+                           total_steps=10_000, mesh=mesh, zero=zero)
+    step = make_pretrain_step(cfg, model, opt, mesh)
+
+    def one():
+        s = fixed_seed if fixed_seed is not None else fold_in(seed, opt.micro_steps)
+        return step(StepRNG(s, "cuda"), table, ids, lens)
+
+    for _ in range(warmup):
+        one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = [one()["loss"] for _ in range(steps)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    out = dict(steps=steps, seconds=secs, steps_per_s=steps / secs,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches_per_step={k: counts[k] / steps for k in COUNTERS}, counts=counts,
+               losses=[float(x) for x in losses], optimizer_state_bytes=opt.state_bytes())
+    out["backend"] = mesh.backend
+    return out, model, one
+
+
+_ONE_RANK = {}
+
+
+def rank_grad_gate(mesh, seed, tp_cfg=None) -> dict:
+    """One deterministic float32 loss and backward of a base model over the
+    mesh (this rank's rows of a global batch of 8; tensor-parallel when
+    ``tp_cfg`` is given: the gradients gathered whole) against the one-rank
+    loss and backward on the whole batch, on rank 0: grad_stats."""
+    from recformer_tpu_torch.config import RecformerConfig
+    from recformer_tpu_torch.data.device_pipeline import make_pretrain_batch
+    from recformer_tpu_torch.models.heads import RecformerForPretraining
+    from recformer_tpu_torch.parallel.tensor import gather_state_dict_tp, shard_model_tp
+    from recformer_tpu_torch.training.steps import pretrain_backward, pretrain_loss, take_rows
+    from recformer_tpu_torch.utils.rng import StepRNG
+
+    cfg = RecformerConfig.base().replace(dtype="float32", hidden_dropout_prob=0.0,
+                                         attention_probs_dropout_prob=0.0)
+    pcfg = cfg if tp_cfg is None else tp_cfg(cfg)
+    table, ids, lens = pretrain_world(cfg, seed + 7)
+    ba, bb = make_pretrain_batch(torch.Generator(device="cuda").manual_seed(seed), table, ids,
+                                 lens, cfg)
+    model = seeded_model(RecformerForPretraining, pcfg, seed)
+    if mesh.n_model > 1:
+        shard_model_tp(model, mesh)
+    metrics = pretrain_backward(pcfg, model, take_rows(ba, mesh), take_rows(bb, mesh),
+                                StepRNG(0, "cuda"), mesh)
+    grads = {n: p.grad.float() for n, p in model.named_parameters()}
+    if mesh.n_model > 1:
+        grads = gather_state_dict_tp(grads, mesh)
+    del model
+    torch.cuda.empty_cache()
+    if mesh.rank != 0:
+        return {}
+    if seed not in _ONE_RANK:  # the same weights and batch for every gate of a seed
+        ref = seeded_model(RecformerForPretraining, cfg, seed)
+        loss, _ = pretrain_loss(cfg, ref(ba, bb), ba, bb)
+        loss.backward()
+        _ONE_RANK[seed] = ({n: p.grad.float() for n, p in ref.named_parameters()},
+                           float(loss.detach()))
+        del ref
+    ref_grads, ref_loss = _ONE_RANK[seed]
+    cos, share, rel = grad_stats(grads, dict(ref_grads))
+    return dict(cos=cos, share=share, rel=rel, loss=float(metrics["loss"]),
+                loss_one_rank=ref_loss)
+
+
+def rank_zero_bit_equal(mesh, seed, steps=3) -> dict:
+    """Plain data-parallel AdamW and ZeRO from one set of weights, handed the
+    same reduced gradients each step (the card's backward is not
+    deterministic: two backwards differ in the last bits): the parameters
+    after each update bit-equal; each one's AdamW state bytes, and the share
+    that the ZeRO rule predicts (whole moments for leaves it leaves alone)."""
+    from recformer_tpu_torch.config import RecformerConfig
+    from recformer_tpu_torch.data.device_pipeline import make_pretrain_batch
+    from recformer_tpu_torch.models.heads import RecformerForPretraining
+    from recformer_tpu_torch.parallel.mesh import zero_shardable
+    from recformer_tpu_torch.training.optimizer import create_optimizer
+    from recformer_tpu_torch.training.steps import pretrain_backward, take_rows
+    from recformer_tpu_torch.utils.rng import StepRNG, fold_in
+
+    cfg = RecformerConfig.base()
+    table, ids, lens = pretrain_world(cfg, seed, batch=8 * mesh.n_data)
+    models = [seeded_model(RecformerForPretraining, cfg, seed) for _ in range(2)]
+    opts = [create_optimizer(m, learning_rate=5e-5, warmup_steps=1, total_steps=10_000,
+                             weight_decay=0.01, mesh=mesh, zero=z)
+            for m, z in zip(models, (False, True))]
+    equal = []
+    for i in range(steps):
+        rng = StepRNG(fold_in(seed, i), "cuda")
+        ba, bb = make_pretrain_batch(rng.device, table, ids, lens, cfg)
+        pretrain_backward(cfg, models[0], take_rows(ba, mesh), take_rows(bb, mesh),
+                          StepRNG(fold_in(rng.seed, mesh.data_rank), "cuda"), mesh)
+        for p, q in zip(models[0].parameters(), models[1].parameters()):
+            q.grad = p.grad.clone()
+        for o in opts:
+            o.step()
+        equal.append(all(torch.equal(p, q) for p, q in zip(models[0].parameters(),
+                                                            models[1].parameters())))
+    params = list(models[0].parameters())
+    total = sum(p.numel() for p in params)
+    rule = sum(p.numel() / (mesh.n_data if zero_shardable(p, mesh.n_data) else 1)
+               for p in params) / total
+    out = dict(bit_equal=all(equal), bit_equal_per_update=equal,
+               plain_optimizer_state_bytes=opts[0].state_bytes(),
+               zero_optimizer_state_bytes=opts[1].state_bytes(), rule_share=rule,
+               unsharded=[n for n, p in models[0].named_parameters()
+                          if not zero_shardable(p, mesh.n_data)][:8])
+    del models, opts
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_world2(args) -> dict:
+    """The phases of the world of 2: dist_check, dp_pretrain_step,
+    dp_local_step and zero_step on a data-only mesh, then tp_step and
+    sharded_catalog on a model-only mesh, the dry run, and the parallel
+    CLIs of ``--rank-plan``."""
+    from recformer_tpu_torch.config import RecformerConfig
+    from recformer_tpu_torch.parallel.mesh import make_mesh
+    from recformer_tpu_torch.parallel.tensor import tp_config, tp_split_dim
+
+    seed = args.seed
+    out = {}
+    dp = make_mesh(1, "cuda", timeout_s=RANK_TIMEOUT_S)
+    out["dist_check"] = rank_dist_check(dp)
+
+    cfg = RecformerConfig.base()
+    run, model, one = rank_train(cfg, dp, seed, 8 * dp.n_data, warmup=2, steps=10)
+    del model, one
+    torch.cuda.empty_cache()
+    run["gate"] = rank_grad_gate(dp, seed)
+    out["dp_pretrain_step"] = run
+
+    cfg0 = cfg.replace(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                       contrastive_gradient="local")
+    run, model, one = rank_train(cfg0, dp, seed, 8 * dp.n_data, warmup=0, steps=10, lr=1e-4,
+                                 fixed_seed=seed + 5)
+    del model, one
+    out["dp_local_step"] = run
+
+    zero, model, one = rank_train(cfg, dp, seed, 8 * dp.n_data, warmup=0, steps=3, zero=True)
+    del model, one
+    torch.cuda.empty_cache()
+    zero.update(rank_zero_bit_equal(dp, seed))
+    out["zero_step"] = zero
+
+    tp = make_mesh(2, "cuda", timeout_s=RANK_TIMEOUT_S)
+    out["tp_step"] = {}
+    for kv in ("thin", "full"):
+        tcfg = tp_config(cfg.replace(global_kv_mode=kv))
+        run, model, one = rank_train(tcfg, tp, seed, 8, warmup=1, steps=2)
+        run["replicated_digests"] = {n: digest(p) for n, p in model.named_parameters()
+                                     if tp_split_dim(n) is None}
+        run["local_heads"] = (model.longformer.encoder.layer[0].attention.self.query.weight
+                              .shape[0] // cfg.head_dim)
+        del model, one
+        torch.cuda.empty_cache()
+        run["gate"] = rank_grad_gate(tp, seed, lambda c, kv=kv: tp_config(
+            c.replace(global_kv_mode=kv)))
+        out["tp_step"][kv] = run
+    out["sharded_catalog"] = rank_sharded_catalog(tp, seed)
+    out["parallel_dryrun"] = rank_dryrun()
+    out["parallel_clis"] = rank_clis(args.rank_plan)
+    return out
+
+
+def rank_dryrun() -> dict:
+    """``parallel/dryrun.py``'s steps in this world (the module's own
+    ``dryrun``, as ``python -m recformer_tpu_torch.parallel.dryrun`` runs
+    it): each step's loss and this rank's launches."""
+    from recformer_tpu_torch.parallel.dryrun import dryrun
+
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = dryrun("cuda")
+    torch.cuda.synchronize()
+    return dict(losses=losses, seconds=time.perf_counter() - t0, counts=read_counts())
+
+
+def rank_sharded_catalog(mesh, seed) -> dict:
+    """``parallel/catalog.py`` over the model group against the dense path on
+    this rank: 10,000 and 10,001 rows of 768 (the second with a padding
+    row), 64 users, and 64 users whose every score is negative."""
+    from recformer_tpu_torch.models.heads import similarity_scores
+    from recformer_tpu_torch.parallel.catalog import (shard_rows, sharded_full_softmax_loss,
+                                                      sharded_rank, sharded_topk)
+    from recformer_tpu_torch.training.losses import seqrec_full_softmax_loss
+    from recformer_tpu_torch.training.metrics import MAX_VAL, rank_from_scores
+
+    g, temp, k = mesh.model_group, 0.05, 10
+    rng = np.random.default_rng(seed + 11)
+    cases = {}
+    for name, n, negative in (("10000", 10_000, False), ("10001", 10_001, False),
+                              ("10001_all_negative", 10_001, True)):
+        pooled = rng.standard_normal((64, 768)).astype(np.float32)
+        emb = rng.standard_normal((n, 768)).astype(np.float32)
+        if negative:
+            pooled, emb = np.abs(pooled) + 0.1, -np.abs(emb) - 0.1
+        pooled, emb = torch.from_numpy(pooled).cuda(), torch.from_numpy(emb).cuda()
+        labels = torch.from_numpy(rng.integers(0, n, size=64)).cuda()
+        scores = similarity_scores(pooled, emb, temp)
+        rank_d, valid_d = rank_from_scores(scores, labels), (scores > -MAX_VAL).float().sum(1)
+        top_d, ids_d = torch.topk(scores, k, dim=1)
+        p = pooled.clone().requires_grad_()
+        loss_d = seqrec_full_softmax_loss(p, emb, labels, temp)
+        loss_d.backward()
+        grad_d = p.grad
+        shard = shard_rows(emb, g)
+        rank_s, valid_s = sharded_rank(pooled, shard, labels, temp, n, g)
+        top_s, ids_s = sharded_topk(pooled, shard, k, temp, n, g)
+        p = pooled.clone().requires_grad_()
+        loss_s = sharded_full_softmax_loss(p, shard, labels, temp, n, g)
+        loss_s.backward()
+        cases[name] = dict(
+            rows=n, rows_per_rank=shard.shape[0],
+            rank_exact=torch.equal(rank_s, rank_d), valid_length_exact=torch.equal(valid_s, valid_d),
+            topk_ids_exact=torch.equal(ids_s, ids_d),
+            topk_score_max_abs_err=float((top_s - top_d).abs().max()),
+            loss_abs_err=float((loss_s - loss_d).abs()),
+            grad_pooled_rel_err=float((p.grad - grad_d).norm() / grad_d.norm()),
+            padded_ids_returned=int((ids_s >= n).sum()))
+    return cases
+
+
+def rank_world4(args) -> dict:
+    """dp_tp_step_ln_kernels: data 2 x model 2 under the LayerNorm kernels
+    and ``--remat --remat_policy save_attention``, 5 steps, and the device
+    kernels of one profiled step."""
+    from recformer_tpu_torch.config import RecformerConfig
+    from recformer_tpu_torch.parallel.mesh import make_mesh
+    from recformer_tpu_torch.parallel.tensor import tp_config
+
+    mesh = make_mesh(2, "cuda", timeout_s=RANK_TIMEOUT_S)
+    cfg = tp_config(RecformerConfig.base(embed_ln_impl="pallas", ln_impl="pallas_bwd",
+                                         remat=True, remat_policy="save_attention"))
+    run, model, one = rank_train(cfg, mesh, args.seed, 8 * mesh.n_data, warmup=1, steps=5)
+    names = kernels_per_call(one, warm=False)
+    ln = [m.group(1) for m in map(LN_KERNEL_NAME.search, names) if m]
+    run["layernorm_device_kernels_per_step"] = {k: ln.count(k) for k in sorted(set(ln))}
+    run["device_kernels_per_step"] = len(names)
+    del model, one
+    torch.cuda.empty_cache()
+    return {"dp_tp_step_ln_kernels": run, "parallel_dryrun": rank_dryrun()}
+
+
+def rank_clis(plan_path) -> dict:
+    """The port's CLIs of the plan at ``plan_path`` (a JSON list of ``{name,
+    module, args, float32, preempt}``), one after another in this rank's
+    process, in the world already set up (each CLI joins it and leaves it
+    up): ``float32`` runs the CLI's config in float32 (the CLIs have no
+    dtype flag), ``preempt`` ``"R:N"`` sends SIGTERM to rank R at its N-th
+    step boundary. Returns each run's result, this rank's launches and
+    peak."""
+    import dataclasses
+    import gc
+    import importlib
+
+    with open(plan_path) as f:
+        plan = json.load(f)
+    out = {}
+    for run in plan:
+        mod = importlib.import_module(f"recformer_tpu_torch.cli.{run['module']}")
+        saved = {k: getattr(mod, k) for k in ("build_config", "_install_preemption_handler")
+                 if hasattr(mod, k)}
+        if run.get("float32"):
+            build = mod.build_config
+            mod.build_config = lambda a, item_num=0, _b=build: dataclasses.replace(
+                _b(a, item_num=item_num), dtype="float32")
+        if run.get("preempt"):
+            rank, n = map(int, run["preempt"].split(":"))
+            if int(os.environ["RANK"]) == rank:
+                real = mod._install_preemption_handler
+                mod._install_preemption_handler = lambda: _SignalAfter(real(), n)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        try:
+            res = mod.main(run["args"])
+        finally:
+            for k, v in saved.items():
+                setattr(mod, k, v)
+        torch.cuda.synchronize()
+        out[run["name"]] = dict(result=res, counts=read_counts(),
+                                peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_main(args) -> int:
+    """Rank mode (under torchrun): run ``--rank-task`` and write this rank's
+    results to ``--rank-out``/rank<r>.json."""
+    from recformer_tpu_torch.parallel.mesh import destroy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tasks = {"world2": rank_world2, "world4": rank_world4}
+    try:
+        out = tasks[args.rank_task](args)
+        with open(os.path.join(args.rank_out, f"rank{os.environ['RANK']}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        destroy()
+    return 0
+
+
+def check_training(phase, per_rank, expected, card, backend, **extra):
+    """Every rank's launches a step equal ``expected``, its losses finite;
+    emits the phase line."""
+    ok = all(r["launches_per_step"][k] == expected[k] for r in per_rank for k in COUNTERS)
+    ok = ok and all(math.isfinite(x) for r in per_rank for x in r["losses"])
+    rank0 = per_rank[0]
+    emit(phase, backend=backend, world=len(per_rank), steps=rank0["steps"],
+         steps_per_s=rank0["steps_per_s"],
+         peak_memory_gib_per_rank=[r["peak_memory_gib"] for r in per_rank],
+         launches_per_step_per_rank=[{k: r["launches_per_step"][k] for k in COUNTERS if
+                                      r["launches_per_step"][k]} for r in per_rank],
+         expected_per_step={k: v for k, v in expected.items() if v},
+         all_on_tensor_cores=all(
+             r["launches_per_step"]["band_attention_fwd_tc"] == r["launches_per_step"][
+                 "band_attention_fwd"] and r["launches_per_step"]["band_attention_bwd_tc"]
+             == r["launches_per_step"]["band_attention_bwd"] for r in per_rank),
+         losses_rank0=rank0["losses"], card=card, **extra, ok=ok)
+    if not ok:
+        raise AssertionError(f"{phase}: launches {[r['launches_per_step'] for r in per_rank]}"
+                             f" (expected {expected}), losses {[r['losses'] for r in per_rank]}")
+    return add_counts([r["counts"] for r in per_rank])
+
+
+def gate_from(phase, gate, **record):
+    gate_grads(phase, ATTN_PROJ, 4 * 12, gate["cos"], gate["share"], gate["rel"],
+               loss_parallel=gate["loss"], loss_one_rank=gate["loss_one_rank"], **record)
+
+
+def run_world2(seed, card, plan_path):
+    """dist_check, dp_pretrain_step (+ its gradient gate), dp_local_step,
+    zero_step, tp_step (both ``global_kv_mode``s, + gates), sharded_catalog
+    and the dry run in one world of 2 ranks on the card, which then runs the
+    parallel CLIs of ``plan_path``. Returns the launches and the ranks'
+    results."""
+    from recformer_tpu_torch.config import RecformerConfig
+    from recformer_tpu_torch.parallel.tensor import tp_config
+
+    t0 = time.perf_counter()
+    ranks, _ = spawn_world(2, ["--rank-task", "world2", "--seed", str(seed), "--rank-plan",
+                               plan_path], timeout=1000)
+    seconds = time.perf_counter() - t0
+    counts = {}
+    dist = [r["dist_check"] for r in ranks]
+    backend = dist[0]["backend"]
+    ok = all(all(d["checks"].values()) for d in dist)
+    emit("dist_check", backend=backend, world=2, tensors="cuda", checks=dist[0]["checks"],
+         world_seconds=seconds, ok=ok)
+    if not ok:
+        raise AssertionError(f"dist_check: {dist}")
+
+    cfg = RecformerConfig.base()
+    per = [r["dp_pretrain_step"] for r in ranks]
+    counts["dp_pretrain_step"] = check_training(
+        "dp_pretrain_step", per, launches_per_step(cfg), card, backend, batch_per_rank=8,
+        global_batch=16, dropout=0.1, contrastive_gradient="full")
+    gate_from("dp_pretrain_step_vs_one_rank", per[0]["gate"], world=2, global_batch=8)
+
+    per = [r["dp_local_step"] for r in ranks]
+    counts["dp_local_step"] = check_training("dp_local_step", per, launches_per_step(cfg), card,
+                                             backend, dropout=0.0, fixed_batch=True)
+    losses = per[0]["losses"]
+    falls = bool(np.mean(losses[-3:]) < np.mean(losses[:3]))
+    emit("dp_local_step_falls", losses=losses, falls=falls, ok=falls)
+    if not falls:
+        raise AssertionError(f"dp_local_step: loss did not fall: {losses}")
+
+    per = [r["zero_step"] for r in ranks]
+    share = [r["zero_optimizer_state_bytes"] / r["plain_optimizer_state_bytes"] for r in per]
+    counts["zero_step"] = check_training(
+        "zero_step", per, launches_per_step(cfg), card, backend,
+        bit_equal_to_plain_dp=[r["bit_equal_per_update"] for r in per],
+        adamw_state_gib_per_rank=[r["zero_optimizer_state_bytes"] / 2 ** 30 for r in per],
+        plain_dp_adamw_state_gib_per_rank=[r["plain_optimizer_state_bytes"] / 2 ** 30
+                                           for r in per], state_share=share,
+        state_share_by_the_rule=per[0]["rule_share"], left_whole=per[0]["unsharded"])
+    if not (all(r["bit_equal"] for r in per)
+            and all(abs(s - r["rule_share"]) < 1e-6 for s, r in zip(share, per))):
+        raise AssertionError(f"zero_step: bit-equal {[r['bit_equal_per_update'] for r in per]},"
+                             f" state share {share} (the rule's {per[0]['rule_share']})")
+
+    counts["tp_step"] = {k: 0 for k in COUNTERS}
+    for kv in ("thin", "full"):
+        per = [r["tp_step"][kv] for r in ranks]
+        tcfg = tp_config(cfg.replace(global_kv_mode=kv))
+        equal = per[0]["replicated_digests"] == per[1]["replicated_digests"]
+        c = check_training(f"tp_step_{kv}", per, launches_per_step(tcfg), card, backend,
+                           model=2, batch=8, heads_per_rank=[r["local_heads"] for r in per],
+                           replicated_tensors=len(per[0]["replicated_digests"]),
+                           replicated_bit_equal_across_ranks=equal)
+        counts["tp_step"] = {k: counts["tp_step"][k] + c[k] for k in COUNTERS}
+        if not (equal and all(r["local_heads"] == 6 for r in per)):
+            raise AssertionError(f"tp_step_{kv}: replicated tensors equal {equal}, heads "
+                                 f"{[r['local_heads'] for r in per]}")
+        gate_from(f"tp_step_{kv}_vs_one_rank", per[0]["gate"], model=2, global_batch=8)
+
+    cases = ranks[0]["sharded_catalog"]
+    # the all-negative users' cosines bunch within ~1e-6 of each other, where
+    # the two paths' float32 dot products (GEMMs of 10,001 and 5,001 rows)
+    # may order near-ties differently: their gate is no padded id
+    ok = all((c["rank_exact"] and c["topk_ids_exact"]) or name.endswith("all_negative")
+             for r in ranks for name, c in r["sharded_catalog"].items())
+    ok = ok and all(c["valid_length_exact"] and c["topk_score_max_abs_err"] <= 1e-5
+                    and c["loss_abs_err"] <= 1e-5 and c["grad_pooled_rel_err"] <= 1e-5
+                    and c["padded_ids_returned"] == 0
+                    for r in ranks for c in r["sharded_catalog"].values())
+    emit("sharded_catalog", backend=backend, world=2, users=64, k=10, cases=cases, ok=ok)
+    if not ok:
+        raise AssertionError(f"sharded_catalog: {[r['sharded_catalog'] for r in ranks]}")
+    counts["parallel_dryrun_world2"] = check_dryrun(ranks)
+    return counts, ranks
+
+
+def run_world4(seed, card) -> dict:
+    from recformer_tpu_torch.config import RecformerConfig
+    from recformer_tpu_torch.parallel.tensor import tp_config
+
+    ranks, _ = spawn_world(4, ["--rank-task", "world4", "--seed", str(seed)], timeout=600)
+    per = [r["dp_tp_step_ln_kernels"] for r in ranks]
+    cfg = tp_config(RecformerConfig.base(embed_ln_impl="pallas", ln_impl="pallas_bwd",
+                                         remat=True, remat_policy="save_attention"))
+    expected = launches_per_step(cfg)
+    ln_expected = {k: v for k, v in zip(("embed_ln_fwd", "embed_ln_bwd", "ln_bwd"), (
+        expected["embed_layernorm_fwd"], expected["embed_layernorm_bwd"],
+        expected["layernorm_bwd"])) if v}
+    ln_ok = all(r["layernorm_device_kernels_per_step"] == ln_expected for r in per)
+    counts = check_training("dp_tp_step_ln_kernels", per, expected, card, per[0]["backend"],
+                            data=2,
+                            model=2, batch_per_data_rank=8, remat_policy="save_attention",
+                            layernorm_device_kernels_per_step=per[0][
+                                "layernorm_device_kernels_per_step"],
+                            layernorm_expected=ln_expected,
+                            kernel1_relaunched_in_backward=per[0]["launches_per_step"][
+                                "band_attention_fwd"] > 24)
+    if not ln_ok:
+        raise AssertionError(f"dp_tp_step_ln_kernels: LayerNorm device kernels "
+                             f"{[r['layernorm_device_kernels_per_step'] for r in per]} "
+                             f"(expected {ln_expected})")
+    return {"dp_tp_step_ln_kernels": counts, "parallel_dryrun_world4": check_dryrun(ranks)}
+
+
+def prepare_parallel_clis(seed, tmp) -> dict:
+    """The corpora, checkpoint and one-rank results of the parallel CLIs, and
+    the plan that the world of 2 runs after its other phases, one command
+    after another: ``cli.evaluate_seq --sharded_eval 2`` (float32) and
+    ``cli.serve``, each against the same command on one rank here;
+    ``cli.pretrain --zero`` on 2 data ranks with a SIGTERM on rank 1 alone
+    after step 5, then ``--resume``; ``cli.pretrain --tensor_parallel 2``."""
+    import dataclasses
+
+    from recformer_tpu_torch.cli import encode_items, evaluate_seq, serve
+    from recformer_tpu_torch.cli.common import init_model_params
+    from recformer_tpu_torch.config import RecformerConfig
+    from recformer_tpu_torch.models.heads import RecformerForSeqRec
+
+    data = os.path.join(tmp, "catalog")
+    os.makedirs(data)
+    write_corpus(data, n_items=1001, n_users=64, seed=seed + 3, hist=(16, 51))
+    cfg = RecformerConfig.base()
+    # random weights spread wide: at the default 0.02 the catalog's cosines
+    # bunch up and bf16 ties would reorder the top-k
+    wide = cfg.replace(initializer_range=0.5)
+    ckpt = os.path.join(tmp, "seqrec.pt")
+    torch.save(init_model_params(RecformerForSeqRec(wide), wide, "cuda", seed).state_dict(),
+               ckpt)
+    common = ["--data_path", data, "--ckpt", ckpt, "--model_size", "base", "--device",
+              "cuda"]
+    build = evaluate_seq.build_config
+    evaluate_seq.build_config = lambda a, item_num=0: dataclasses.replace(
+        build(a, item_num=item_num), dtype="float32")
+    try:
+        one_eval = evaluate_seq.main(common + ["--batch_size", "16"])
+    finally:
+        evaluate_seq.build_config = build
+    emb = os.path.join(tmp, "emb.npy")
+    encode_items.main(common + ["--output", emb])
+    serve_args = common + ["--sequences", os.path.join(data, "sequences.json"),
+                           "--item_embeddings", emb, "--top_k", "10"]
+    serve.main(serve_args + ["--output", os.path.join(tmp, "one.jsonl")])
+
+    pre = os.path.join(tmp, "pretrain")
+    os.makedirs(pre)
+    seqs = write_corpus(pre, n_users=24, seed=seed)
+    for name, part in (("train", list(seqs.values())), ("dev", list(seqs.values())[:8])):
+        with open(os.path.join(pre, f"{name}.json"), "w") as f:
+            json.dump(part, f)
+    base_args = ["--data_path", pre, "--model_size", "base", "--warmup_steps", "1",
+                 "--seed", str(seed), "--device", "cuda", "--save_top_k", "1"]
+    z_out, tp_out = os.path.join(tmp, "zero"), os.path.join(tmp, "tp")
+    z_args = base_args + ["--output_dir", z_out, "--num_train_epochs", "2", "--batch_size",
+                          "4", "--gradient_accumulation_steps", "2", "--zero"]
+    plan = [
+        dict(name="evaluate_seq", module="evaluate_seq", float32=True,
+             args=common + ["--batch_size", "16", "--sharded_eval", "2"]),
+        dict(name="serve", module="serve",
+             args=serve_args + ["--output", os.path.join(tmp, "two.jsonl")]),
+        dict(name="zero", module="pretrain", args=z_args, preempt="1:5"),
+        dict(name="zero_resume", module="pretrain", args=z_args + ["--resume"]),
+        dict(name="tp", module="pretrain", args=base_args + [
+            "--output_dir", tp_out, "--num_train_epochs", "1", "--batch_size", "8",
+            "--gradient_accumulation_steps", "2", "--tensor_parallel", "2"]),
+    ]
+    plan_path = os.path.join(tmp, "plan.json")
+    with open(plan_path, "w") as f:
+        json.dump(plan, f)
+    torch.cuda.empty_cache()
+    return dict(plan=plan, plan_path=plan_path, one_eval=one_eval, tmp=tmp, z_out=z_out,
+                tp_out=tp_out, cfg=cfg)
+
+
+def check_parallel_clis(seed, ranks, ctx) -> dict:
+    """The parallel CLIs' results (the world of 2's ``parallel_clis``) against
+    the one-rank ones; the tensor-parallel ``best.pt`` (whole tensors) into a
+    one-rank ``cli.finetune`` for one epoch a stage. Returns their launches
+    over the ranks."""
+    from recformer_tpu_torch.cli import finetune
+    from recformer_tpu_torch.models.heads import RecformerForPretraining
+
+    plan, one_eval, tmp = ctx["plan"], ctx["one_eval"], ctx["tmp"]
+    z_out, tp_out, cfg = ctx["z_out"], ctx["tp_out"], ctx["cfg"]
+    ranks = [r["parallel_clis"] for r in ranks]
+    counts = add_counts([r[run["name"]]["counts"] for r in ranks for run in plan])
+
+    two = ranks[0]["evaluate_seq"]["result"]
+    err = max(abs(two[k] - one_eval[k]) for k in one_eval)
+    ok = set(one_eval) == set(two) and err <= 1e-5
+    emit("parallel_cli_evaluate_seq", world=2, sharded_eval=2, items=1001, users=64,
+         dtype="float32", one_rank=one_eval, two_ranks=two, max_abs_err=err,
+         launches_per_rank=[r["evaluate_seq"]["counts"]["band_attention_fwd"]
+                            for r in ranks], ok=ok)
+    if not ok:
+        raise AssertionError(f"parallel_cli_evaluate_seq: {one_eval} vs {two}")
+
+    rows = []
+    for name in ("one", "two"):
+        with open(os.path.join(tmp, f"{name}.jsonl")) as f:
+            rows.append([json.loads(l) for l in f])
+    same = len(rows[0]) == len(rows[1]) == 64 and all(
+        a["items"] == b["items"] for a, b in zip(*rows))
+    emit("parallel_cli_serve", world=2, users=64, top_k=10, same_ids=same, ok=same)
+    if not same:
+        raise AssertionError("parallel_cli_serve: the two ranks' ids differ from one rank's")
+
+    first = [r["zero"]["result"] for r in ranks]
+    second = [r["zero_resume"]["result"] for r in ranks]
+    ok = ([r["steps"] for r in first] == [5, 5]
+          and all(r["preempted"] == signal.SIGTERM for r in first)
+          and [r["steps"] for r in second] == [8, 8]
+          and all("preempted" not in r for r in second)
+          and {"state.pt", "last.pt", "config.json"} <= set(os.listdir(z_out)))
+    emit("parallel_cli_pretrain_zero_preemption", world=2, zero=True,
+         sigterm="rank 1 only, after step 5", stopped_at_per_rank=[r["steps"] for r in first],
+         resumed=second, peak_memory_gib_per_rank=[r["zero"]["peak_memory_gib"]
+                                                   for r in ranks], ok=ok)
+    if not ok:
+        raise AssertionError(f"parallel_cli_pretrain_zero_preemption: {first}, {second}")
+
+    tp_res = ranks[0]["tp"]["result"]
+    whole = RecformerForPretraining(cfg)
+    whole.load_state_dict(torch.load(os.path.join(tp_out, "best.pt"), weights_only=True),
+                          strict=True)
+    del whole
+    ft = os.path.join(tmp, "finetune")
+    os.makedirs(ft)
+    write_corpus(ft, n_items=128, n_users=32, seed=seed + 1, hist=(16, 51))
+    with _MergeRecord() as loads:
+        metrics = finetune.main(["--data_path", ft, "--output_dir", os.path.join(ft, "out"),
+                                 "--model_size", "base", "--device", "cuda",
+                                 "--num_train_epochs", "1", "--verbose", "1",
+                                 "--batch_size", "16", "--seed", str(seed),
+                                 "--pretrain_ckpt", os.path.join(tp_out, "best.pt")])
+    copied = len(loads[0][0]) if loads else 0
+    ok = (tp_res["steps"] == 3 and copied == len(loads[0][2])
+          and all(math.isfinite(v) for v in metrics.values()))
+    emit("parallel_cli_pretrain_tp", world=2, tensor_parallel=2, result=tp_res,
+         peak_memory_gib_per_rank=[r["tp"]["peak_memory_gib"] for r in ranks],
+         best_pt_whole=True, into_one_rank_finetune={"copied": copied,
+                                                     "test_metrics": metrics}, ok=ok)
+    if not ok:
+        raise AssertionError(f"parallel_cli_pretrain_tp: {tp_res}, copied {copied}, "
+                             f"{metrics}")
+    return {"parallel_clis": counts}
+
+
+def check_dryrun(ranks) -> dict:
+    """parallel_dryrun: every step of the dry run ran, its losses finite and
+    equal on every rank; returns the launches over the ranks."""
+    per = [r["parallel_dryrun"] for r in ranks]
+    names = ["pretrain", "finetune_sampled", "finetune_full", "zero", "local"] + (
+        ["tensor_parallel"] if len(ranks) >= 4 else [])
+    losses = per[0]["losses"]
+    ok = (sorted(losses) == sorted(names) and all(math.isfinite(v) for v in losses.values())
+          and all(r["losses"] == losses for r in per))
+    emit("parallel_dryrun", world=len(ranks), losses=losses, seconds=per[0]["seconds"], ok=ok)
+    if not ok:
+        raise AssertionError(f"parallel_dryrun world {len(ranks)}: {per}")
+    return add_counts([r["counts"] for r in per])
+
+
+def run_parallel(seed, card) -> dict:
+    """Every parallel phase; returns the launches of each, over all ranks."""
+    with tempfile.TemporaryDirectory() as tmp:
+        clis = prepare_parallel_clis(seed, tmp)
+        counts, ranks = run_world2(seed, card, clis["plan_path"])
+        counts.update(check_parallel_clis(seed, ranks, clis))
+    counts.update(run_world4(seed, card))
+    return counts
+
+
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=["parallel"], default=None,
+                    help="build, then run only the parallel phases (30-33); no result line")
+    # rank mode: this script as one rank of a world that it started itself
+    ap.add_argument("--rank-task", choices=["world2", "world4"], help=argparse.SUPPRESS)
+    ap.add_argument("--rank-out", help=argparse.SUPPRESS)
+    ap.add_argument("--rank-plan", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
         return 1
+    if args.rank_task:
+        return rank_main(args)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from recformer_tpu_torch import native
@@ -3206,6 +4003,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     native.load_library()  # the host library (g++), timed in the native phase
     native_build_seconds = time.perf_counter() - t0
+    if args.only == "parallel":
+        run_parallel(args.seed, card)
+        emit("command_time", seconds=time.perf_counter() - t_start, limit_seconds=1200)
+        return 0
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     errs = check_kernels(gen)
@@ -3239,6 +4040,7 @@ def main(argv=None) -> int:
         phases.update(run_fraud(args.seed, card, os.path.join(keep, "best.pt")))
     phases.update(run_analytics(args.seed, card, native_build_seconds))
     phases.update(run_remat_and_host(args.seed, card))
+    phases.update(run_parallel(args.seed, card))
 
     sources = {"band_attention_fwd": "band_attention_fwd.cu",
                "band_attention_bwd": "band_attention_bwd.cu",

@@ -61,6 +61,18 @@ def tokenize_corpus_cached(tokenizer: RecformerTokenizer, item_meta: Dict,
     return table
 
 
+def rank0_first(mesh, fn):
+    """``fn()`` on rank 0, then on the other ranks: a cache that ``fn``
+    writes (the tokenized corpus) is written once and read by the rest."""
+    if mesh is None:
+        return fn()
+    import torch.distributed as dist
+
+    out = fn() if mesh.rank == 0 else None
+    dist.barrier()
+    return out if mesh.rank == 0 else fn()
+
+
 def table_to_device(table: ItemTable, device="cuda") -> Dict[str, torch.Tensor]:
     dev = resolve_device(device)
     return {k: torch.from_numpy(v).to(dev) for k, v in table.as_arrays().items()}

@@ -10,11 +10,19 @@ reads a saved catalog ``.npy``; otherwise the catalog is encoded and cached
 in ``<data>/preprocess/item_emb_<name>.npz`` under a fingerprint of the
 parameters. ``--scan_layers``, ``--scan_unroll``, ``--remat`` and
 ``--remat_policy`` are recorded in the config and change no forward pass.
-``--sharded_eval N`` (the catalog row-sharded over N devices) comes with the
-port's parallel slice: N > 0 raises.
+
+``--sharded_eval N`` ranks against a catalog row-sharded over N ranks
+(``training.loops.evaluate_seqrec_sharded``), one process per rank under
+torchrun, with a world size that N divides: each group of N ranks encodes
+its rows of the catalog (or takes them from ``--item_embeddings``; no cache
+is written) and the users' batches are dealt over the world / N groups.
+Rank 0 prints and writes the metrics.
 
     python -m recformer_tpu_torch.cli.evaluate_seq --data_path DIR --ckpt M.bin \\
         --device cuda
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \\
+        -m recformer_tpu_torch.cli.evaluate_seq --data_path DIR --ckpt M.bin \\
+        --sharded_eval 2 --device cuda
 """
 
 from __future__ import annotations
@@ -28,7 +36,10 @@ import torch
 
 from ..data.datasets import EvalDataset
 from ..models.heads import RecformerForSeqRec
-from ..training.loops import encode_all_items, evaluate_seqrec
+from ..parallel.catalog import shard_rows
+from ..parallel.mesh import destroy, make_mesh, world_size
+from ..training.loops import (encode_all_items, encode_catalog_shard, evaluate_seqrec,
+                              evaluate_seqrec_sharded)
 from ..utils.device import resolve_device
 from ..utils.io import load_finetune_artifacts
 from .common import (
@@ -36,6 +47,7 @@ from .common import (
     init_model_params,
     make_tokenizer,
     maybe_load_pretrained,
+    rank0_first,
     table_to_device,
     tokenize_corpus_cached,
 )
@@ -73,8 +85,8 @@ def parse_args(argv=None):
                         "it the catalog is encoded afresh (the zero-shot protocol)")
     p.add_argument("--output_file", type=str, default=None)
     p.add_argument("--sharded_eval", type=int, default=0, metavar="N_SHARDS",
-                   help="rank against a catalog row-sharded over N devices: not ported "
-                        "yet (N > 0 raises)")
+                   help="rank against a catalog row-sharded over N ranks (under torchrun; "
+                        "the world size a multiple of N)")
     p.add_argument("--embed_ln_impl", choices=["xla", "pallas"], default=None,
                    help="embedding sum + LayerNorm: plain (default) or the fused kernel")
     p.add_argument("--device", type=str, default="cuda",
@@ -84,36 +96,60 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    mesh = None
     if args.sharded_eval:
-        raise SystemExit(f"--sharded_eval {args.sharded_eval}: ranking against a row-sharded "
-                         "catalog comes with the port's parallel slice; this port ranks "
-                         "against one table on one device (--sharded_eval 0)")
-    device = resolve_device(args.device)
+        n_world = world_size()
+        if "MASTER_ADDR" not in os.environ or n_world % args.sharded_eval:
+            raise SystemExit(f"--sharded_eval {args.sharded_eval} runs one process per rank: "
+                             "start it with python -m torch.distributed.run --standalone "
+                             f"--nproc_per_node M, M a multiple of {args.sharded_eval} "
+                             f"(world size here: {n_world})")
+        mesh = make_mesh(args.sharded_eval, args.device)
+    try:
+        return _evaluate(args, mesh)
+    finally:
+        if mesh is not None:
+            destroy(mesh)
+
+
+def _evaluate(args, mesh):
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     train, val, test, meta, item2id, _ = load_finetune_artifacts(args.data_path)
     config = build_config(args, item_num=len(item2id))
     tokenizer = make_tokenizer(config, args.hf_tokenizer)
     name = os.path.basename(os.path.normpath(args.data_path))
-    table_np = tokenize_corpus_cached(
-        tokenizer, meta, item2id, os.path.join(args.data_path, "preprocess"), name
-    )
+    table_np = rank0_first(mesh, lambda: tokenize_corpus_cached(
+        tokenizer, meta, item2id, os.path.join(args.data_path, "preprocess"), name))
     table = table_to_device(table_np, device)
 
     model = init_model_params(RecformerForSeqRec(config), config, device)
     model = maybe_load_pretrained(model, args.ckpt)
-
-    if args.item_embeddings:
-        item_embeddings = torch.from_numpy(np.load(args.item_embeddings)).to(device)
-    else:
-        item_embeddings = encode_all_items(
-            model, table, config, args.encode_batch_size,
-            cache_path=os.path.join(args.data_path, "preprocess", f"item_emb_{name}.npz"))
     max_items = max(max((len(s) for s in train.values()), default=1), 1) + 1
     ds = EvalDataset(train, val, test, args.split, max_items=max_items)
-    metrics = evaluate_seqrec(model, table, ds, item_embeddings, config, args.batch_size)
-    print(f"{args.split} set: {metrics}")
-    if args.output_file:
-        with open(args.output_file, "w") as f:
-            json.dump(metrics, f, indent=2)
+
+    if mesh is not None:
+        n_items = int(table["lengths"].shape[0]) - 1
+        if args.item_embeddings:
+            emb_shard = shard_rows(torch.from_numpy(np.load(args.item_embeddings)).to(device),
+                                   mesh.model_group)
+        else:
+            emb_shard = encode_catalog_shard(model, table, config, mesh.model_group,
+                                             args.encode_batch_size)
+        metrics = evaluate_seqrec_sharded(model, table, ds, emb_shard, n_items, config, mesh,
+                                          args.batch_size)
+    else:
+        if args.item_embeddings:
+            item_embeddings = torch.from_numpy(np.load(args.item_embeddings)).to(device)
+        else:
+            item_embeddings = encode_all_items(
+                model, table, config, args.encode_batch_size,
+                cache_path=os.path.join(args.data_path, "preprocess", f"item_emb_{name}.npz"))
+        metrics = evaluate_seqrec(model, table, ds, item_embeddings, config, args.batch_size)
+    if mesh is None or mesh.rank == 0:
+        print(f"{args.split} set: {metrics}")
+        if args.output_file:
+            with open(args.output_file, "w") as f:
+                json.dump(metrics, f, indent=2)
     return metrics
 
 

@@ -17,7 +17,9 @@ backward; the LM head keeps flax's under every value. ``attention_impl``
 keeps its values:
 ``'pallas'`` selects the hand-written windowed-attention kernel (its plain
 version on the CPU), ``'dense'`` and ``'chunked'`` the plain twins, and
-``'sequence_parallel'`` is refused until the parallel slice.
+``'sequence_parallel'`` is refused: sequence parallelism is not ported yet.
+``attention_head_shard_axis`` marks a tensor-parallel model, whose heads
+``parallel/tensor.py`` shards over the ``model`` process group.
 """
 
 from __future__ import annotations

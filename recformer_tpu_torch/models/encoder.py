@@ -45,6 +45,22 @@ Training passes a :class:`~recformer_tpu_torch.utils.rng.StepRNG`: attention
 probabilities take ``attention_probs_dropout_prob`` (in the kernel, or in the
 plain twins), the two block outputs take ``hidden_dropout_prob`` before their
 residual sums. Without one the forward is deterministic.
+
+Tensor parallelism (``parallel/tensor.py``'s ``shard_model_tp`` sets ``tp``,
+the mesh, on the attention core, the intermediate projection and both block
+outputs): each rank holds ``H / n`` heads of the attention projections and
+``FFN / n`` columns of the intermediate one, so kernels 1 and 2 run at
+``num_heads = H / n``; the replicated hidden state enters each of those
+through ``copy_to`` (whose backward sums the cotangents over the model
+group) and each row-parallel output projection's partial product is summed
+in float32 by ``psum`` before its bias is added once. The thin global rows
+reassociate per local head as they do over all heads. The attention
+probabilities' dropout (the kernel's seed and the plain draws) comes from
+``utils.rng.head_group_rng``, folded by the model rank, so head groups draw
+differently while the hidden dropout, drawn from the step's generators,
+stays the same on every rank of the group. Under ``remat`` the
+recomputation runs the layer's collectives again, in the same order on
+every rank.
 """
 
 from __future__ import annotations
@@ -59,7 +75,8 @@ from ..ops.attention import (_batch_index, chunked_attention, dense_attention,
                              global_prefix_indices, global_rows_thin)
 from ..ops.layernorm import fused_bwd_layernorm, split_layernorm
 from ..ops.window_attention import window_attention
-from ..utils.rng import capture, dropout, replay
+from ..parallel.collectives import copy_to, psum
+from ..utils.rng import capture, dropout, head_group_rng, replay
 
 # The data contract has exactly one global token per sequence (the <s> row).
 _MAX_GLOBALS = 1
@@ -135,10 +152,11 @@ class _Dense(torch.autograd.Function):
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype,
-          tape: LayerTape | None = None) -> torch.Tensor:
-    """flax ``nn.Dense(dtype=...)``: input, kernel and bias in the compute
-    type; its output kept by ``tape`` when the policy keeps products."""
-    args = (x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+          tape: LayerTape | None = None, bias: bool = True) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=...)``: input, kernel and bias (unless
+    ``bias`` is False) in the compute type; its output kept by ``tape`` when
+    the policy keeps products."""
+    args = (x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype) if bias else None)
     if tape is None or not tape.dots:
         return F.linear(*args)
     return tape.keep(lambda kept: _Dense.apply(*args, kept))
@@ -164,6 +182,7 @@ class LongformerSelfAttention(nn.Module):
         super().__init__()
         self.config = config
         self.window = window
+        self.tp = None  # the mesh, under tensor parallelism
         hs = config.hidden_size
         for name in ("query", "key", "value", "query_global", "key_global", "value_global"):
             setattr(self, name, _linear(config, hs, hs))
@@ -171,11 +190,18 @@ class LongformerSelfAttention(nn.Module):
     def forward(self, hidden: torch.Tensor, mask: torch.Tensor, rng=None,
                 tape: LayerTape | None = None) -> torch.Tensor:
         cfg = self.config
-        B, L, hs = hidden.shape
+        B, L, _ = hidden.shape
         H, D = cfg.num_attention_heads, cfg.head_dim
         dt = cfg.compute_dtype
         if cfg.attention_impl == "sequence_parallel":
-            raise NotImplementedError("sequence_parallel attention arrives with the parallel slice")
+            raise NotImplementedError(
+                "attention_impl='sequence_parallel' is not ported yet: it comes with the next "
+                "port slice (sequence and pipeline parallelism)")
+        if self.tp is not None:
+            hidden = copy_to(hidden, self.tp.model_group)
+            H //= self.tp.n_model
+            if rng is not None and cfg.attention_probs_dropout_prob > 0.0:
+                rng = head_group_rng(rng, self.tp.model_rank)
 
         def heads(x):
             return x.reshape(B, -1, H, D)
@@ -215,7 +241,7 @@ class LongformerSelfAttention(nn.Module):
                                    host_generator=rng.host if rng is not None else None,
                                    g_out=g_out,
                                    tape=tape if tape is not None and tape.attention else None)
-        return out.reshape(B, L, hs)
+        return out.reshape(B, L, H * D)
 
 
 _BLOCK_LAYERNORMS = {"pallas_bwd": fused_bwd_layernorm, "split_bwd": split_layernorm}
@@ -229,6 +255,7 @@ class BlockOutput(nn.Module):
     def __init__(self, config: RecformerConfig, n_in: int):
         super().__init__()
         self.config = config
+        self.tp = None  # the mesh, under tensor parallelism (row-parallel dense)
         self.dense = _linear(config, n_in, config.hidden_size)
         self.LayerNorm = nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps,
                                       dtype=config.params_dtype)
@@ -237,7 +264,12 @@ class BlockOutput(nn.Module):
                 tape: LayerTape | None = None) -> torch.Tensor:
         cfg = self.config
         dt = cfg.compute_dtype
-        x = dropout(dense(x, self.dense, dt, tape), cfg.hidden_dropout_prob, rng)
+        if self.tp is None:
+            x = dense(x, self.dense, dt, tape)
+        else:
+            x = dense(x, self.dense, dt, tape, bias=False)
+            x = psum(x.float(), self.tp.model_group).to(dt) + self.dense.bias.to(dt)
+        x = dropout(x, cfg.hidden_dropout_prob, rng)
         x = x + residual.to(dt)
         ln = self.LayerNorm
         if cfg.ln_impl in _BLOCK_LAYERNORMS:
@@ -260,10 +292,13 @@ class Intermediate(nn.Module):
     def __init__(self, config: RecformerConfig):
         super().__init__()
         self.config = config
+        self.tp = None  # the mesh, under tensor parallelism (column-parallel dense)
         self.dense = _linear(config, config.hidden_size, config.intermediate_size)
         self.act = activation(config.hidden_act)
 
     def forward(self, hidden, tape=None):
+        if self.tp is not None:
+            hidden = copy_to(hidden, self.tp.model_group)
         return self.act(dense(hidden, self.dense, self.config.compute_dtype, tape))
 
 

@@ -55,15 +55,25 @@ def restore_params(path: str) -> Dict[str, torch.Tensor]:
 def save_train_state(path: str, model, optimizer, **position) -> None:
     """Parameters, optimizer state and micro-step count, plus ``position``
     (JSON-like values: where the caller's loop stands)."""
-    _atomic_save({"params": _cpu_state_dict(model), "optimizer": optimizer.state_dict(),
-                  "step": optimizer.micro_steps, "position": position}, path)
+    write_train_state(path, model, optimizer.state_dict(), optimizer.micro_steps, **position)
 
 
-def restore_train_state(path: str, model, optimizer) -> dict:
+def write_train_state(path: str, params, optimizer_state: dict, step: int, **position) -> None:
+    """:func:`save_train_state` from its parts: a module or state dict, an
+    optimizer's ``state_dict()`` and its micro-step count (a parallel run
+    gathers them on every rank and writes from one)."""
+    _atomic_save({"params": _cpu_state_dict(params), "optimizer": optimizer_state,
+                  "step": step, "position": position}, path)
+
+
+def restore_train_state(path: str, model, optimizer, shard=None) -> dict:
     """Load a train state into ``model`` and ``optimizer`` in place (the
-    optimizer keeps its parameters); returns the saved position."""
+    optimizer keeps its parameters and takes its share of the saved state);
+    ``shard`` maps the saved whole parameters to the model's (a tensor-
+    parallel rank's slices). Returns the saved position."""
     state = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(state["params"], strict=True)
+    params = state["params"] if shard is None else shard(state["params"])
+    model.load_state_dict(params, strict=True)
     optimizer.load_state_dict(state["optimizer"])
     assert optimizer.micro_steps == state["step"], (optimizer.micro_steps, state["step"])
     return state["position"]

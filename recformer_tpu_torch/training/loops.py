@@ -2,7 +2,7 @@
 two-stage seq-rec finetune and fraud evaluation.
 
 Counterparts of ``encode_all_items``, ``evaluate_seqrec``,
-``train_seqrec_epoch``, ``finetune_two_stage``,
+``evaluate_seqrec_sharded``, ``train_seqrec_epoch``, ``finetune_two_stage``,
 ``binary_classification_metrics``, ``roc_auc`` and ``evaluate_fraud`` in
 ``recformer_tpu/training/loops.py``; the fraud metrics are computed on the
 host in numpy, as there. Each streams fixed-size batches
@@ -66,10 +66,20 @@ def encode_all_items(model, table, config: RecformerConfig, batch_size: int = 25
         np.savez(cache_path, embeddings=emb.float().cpu().numpy(),
                  dtype=str(emb.dtype).removeprefix("torch."), fingerprint=fp, n_items=n)
         return emb
+    return encode_item_rows(model, table, config, 0, n, batch_size)
+
+
+def encode_item_rows(model, table, config: RecformerConfig, start: int, stop: int,
+                     batch_size: int = 256) -> torch.Tensor:
+    """The pooled ``(stop - start, H)`` embeddings of items ``start`` to
+    ``stop`` (chunks of ``batch_size``, the tail padded with item 0 and
+    trimmed)."""
+    n = stop - start
+    dev = _model_device(model)
     step = make_encode_items_step(config, model)
-    pad_to = -(-n // batch_size) * batch_size
+    pad_to = max(1, -(-n // batch_size)) * batch_size
     ids = torch.zeros(pad_to, dtype=torch.int32)
-    ids[:n] = torch.arange(n, dtype=torch.int32)
+    ids[:n] = torch.arange(start, stop, dtype=torch.int32)
     ids = ids.to(dev)
     out = None
     for c in range(0, pad_to, batch_size):
@@ -78,6 +88,22 @@ def encode_all_items(model, table, config: RecformerConfig, batch_size: int = 25
             out = torch.empty((pad_to, pooled.shape[-1]), dtype=pooled.dtype, device=dev)
         out[c:c + batch_size] = pooled
     return out[:n]
+
+
+def encode_catalog_shard(model, table, config: RecformerConfig, group,
+                         batch_size: int = 256) -> torch.Tensor:
+    """This rank's rows of the catalog row-sharded over ``group``
+    (``parallel.catalog.shard_rows`` of :func:`encode_all_items`): only
+    those rows are encoded, the padding rows are zeros."""
+    from ..parallel.collectives import group_rank, group_size
+
+    n = int(table["lengths"].shape[0]) - 1
+    n_local = -(-n // group_size(group))
+    start = min(n, group_rank(group) * n_local)
+    stop = min(n, start + n_local)
+    own = encode_item_rows(model, table, config, start, stop, batch_size)
+    pad = torch.zeros((n_local - own.shape[0], own.shape[1]), dtype=own.dtype, device=own.device)
+    return torch.cat([own, pad])
 
 
 def evaluate_seqrec(model, table, dataset: EvalDataset, item_embeddings,
@@ -95,6 +121,46 @@ def evaluate_seqrec(model, table, dataset: EvalDataset, item_embeddings,
     if totals is None:
         return {}
     totals = {k: float(v) for k, v in totals.items()}
+    count = totals.pop("count")
+    return {k: v / max(count, 1.0) for k, v in totals.items()}
+
+
+def evaluate_seqrec_sharded(model, table, dataset: EvalDataset, emb_shard, n_items: int,
+                            config: RecformerConfig, mesh, batch_size: int = 32,
+                            ks: Sequence[int] = (10, 50)) -> Dict[str, float]:
+    """:func:`evaluate_seqrec` against a catalog row-sharded over the mesh's
+    model group (``emb_shard``: this rank's rows of the ``n_items``-row
+    catalog, padding rows included): each label's exact rank comes from
+    ``parallel.catalog.sharded_rank``, which masks the padding, so no
+    correction is needed (the JAX package subtracts the padding rows'
+    phantom counts). The batches are dealt round-robin over the data group,
+    whose sums are added at the end; the global score matrix is never
+    formed."""
+    from ..data.device_pipeline import assemble_for_config
+    from ..parallel.catalog import sharded_rank
+    from ..parallel.collectives import psum
+    from .steps import rank_sums
+
+    dev = _model_device(model)
+    totals = None
+    with torch.no_grad():
+        for i, batch in enumerate(dataset.batches(batch_size)):
+            if i % mesh.n_data != mesh.data_rank:
+                continue
+            ids, lens, labels, valid = (torch.from_numpy(a).to(dev) for a in (
+                batch.item_ids, batch.seq_lens, batch.labels, batch.valid))
+            pooled = model(assemble_for_config(table, ids, lens, config))
+            rank, valid_length = sharded_rank(pooled, emb_shard, labels, config.temp, n_items,
+                                              mesh.model_group)
+            out = rank_sums(rank, valid_length, valid, ks)
+            totals = out if totals is None else {k: totals[k] + v for k, v in out.items()}
+        if totals is None:
+            totals = {k: torch.zeros((), device=dev) for k in rank_sums(
+                torch.zeros(0, device=dev), torch.zeros(0, device=dev),
+                torch.zeros(0, device=dev), ks)}
+        keys = sorted(totals)
+        summed = psum(torch.stack([totals[k].float() for k in keys]), mesh.data_group)
+    totals = dict(zip(keys, summed.tolist()))
     count = totals.pop("count")
     return {k: v / max(count, 1.0) for k, v in totals.items()}
 

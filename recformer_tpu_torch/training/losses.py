@@ -4,9 +4,13 @@ whatever the compute type.
 Counterparts of ``IGNORE_INDEX``, ``info_nce_loss``, ``mlm_loss``,
 ``seqrec_full_softmax_loss``, ``seqrec_sampled_softmax_loss``,
 ``bce_with_logits_loss`` and ``focal_loss`` in
-``recformer_tpu/training/losses.py``, on one device (the JAX package's
-``axis_name=None``): the cross-device gather of the contrastive negatives
-comes with the parallel slice.
+``recformer_tpu/training/losses.py``, and ``gather_embeddings``. Given a
+process group (the mesh's ``data_group``), :func:`info_nce_loss` takes its
+negatives from every rank's rows (``gather_embeddings``): ``'full'``
+through an all-gather whose backward is ``psum_scatter``, ``'local'`` with
+the remote rows detached (the reference's ``models.py:475-490``), and
+:func:`mlm_loss` divides by the group's total count of valid positions, so
+that the per-rank terms sum to the one-device loss of the whole batch.
 """
 
 from __future__ import annotations
@@ -17,9 +21,11 @@ import torch
 
 from ..data.device_pipeline import IGNORE_INDEX
 from ..models.heads import similarity_scores
+from ..parallel.collectives import all_gather, all_gather_local, psum
 
-__all__ = ["IGNORE_INDEX", "info_nce_loss", "mlm_loss", "seqrec_full_softmax_loss",
+__all__ = ["IGNORE_INDEX", "gather_embeddings", "info_nce_loss", "mlm_loss", "seqrec_full_softmax_loss",
            "seqrec_sampled_softmax_loss", "seqrec_sampled_softmax_loss_from_negatives",
+           "sampled_softmax_from_candidates",
            "bce_with_logits_terms", "bce_with_logits_loss", "focal_loss"]
 
 
@@ -27,11 +33,27 @@ def _l2norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return x / torch.linalg.norm(x, dim=-1, keepdim=True).clamp_min(eps)
 
 
-def info_nce_loss(z1: torch.Tensor, z2: torch.Tensor, temp: float
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """In-batch contrastive loss with diagonal labels. Returns (loss,
-    correct count, total count), the counts for the contrastive accuracy."""
-    sim = _l2norm(z1.float()) @ _l2norm(z2.float()).t() / temp  # (N, N)
+def gather_embeddings(z: torch.Tensor, group=None, grad_mode: str = "full") -> torch.Tensor:
+    """Every rank's rows of ``z`` in rank order (``z`` itself without a
+    group): ``grad_mode='full'`` differentiable to every rank, ``'local'``
+    differentiable only in this rank's rows."""
+    if group is None:
+        return z
+    if grad_mode == "full":
+        return all_gather(z, group)
+    if grad_mode == "local":
+        return all_gather_local(z, group)
+    raise ValueError(f"unknown grad_mode {grad_mode!r}")
+
+
+def info_nce_loss(z1: torch.Tensor, z2: torch.Tensor, temp: float, group=None,
+                  grad_mode: str = "full") -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """In-batch contrastive loss with diagonal labels over the gathered batch
+    (:func:`gather_embeddings`). Returns (loss, correct count, total count),
+    the counts for the contrastive accuracy, over the gathered batch."""
+    z1 = gather_embeddings(z1.float(), group, grad_mode)
+    z2 = gather_embeddings(z2.float(), group, grad_mode)
+    sim = _l2norm(z1) @ _l2norm(z2).t() / temp  # (N, N)
     labels = torch.arange(sim.shape[0], device=sim.device)
     logp = torch.log_softmax(sim, dim=-1)
     loss = -logp.diagonal().mean()
@@ -40,18 +62,22 @@ def info_nce_loss(z1: torch.Tensor, z2: torch.Tensor, temp: float
     return loss, correct, total
 
 
-def mlm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def mlm_loss(logits: torch.Tensor, labels: torch.Tensor, group=None) -> torch.Tensor:
     """Masked-LM cross-entropy at gathered positions; ``IGNORE_INDEX`` slots
-    are excluded and the mean is over valid slots. The logsumexp-gather form
-    (``gather(logits) - logsumexp(logits)``) keeps no second (B, P, vocab)
-    tensor."""
+    are excluded and the mean is over valid slots (over the whole group's
+    valid slots when a group is given: this rank's share of the group's
+    mean). The logsumexp-gather form (``gather(logits) - logsumexp(logits)``)
+    keeps no second (B, P, vocab) tensor."""
     valid = labels != IGNORE_INDEX
     safe = torch.where(valid, labels, 0).long()
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, lse - picked, 0.0)
-    return nll.sum() / valid.sum().clamp_min(1)
+    count = valid.sum()
+    if group is not None:
+        count = psum(count, group)
+    return nll.sum() / count.clamp_min(1)
 
 
 def seqrec_full_softmax_loss(pooled: torch.Tensor, item_embeddings: torch.Tensor,
@@ -70,7 +96,14 @@ def seqrec_sampled_softmax_loss_from_negatives(pooled: torch.Tensor,
     """Sampled softmax given the negatives ``(B, n)``: the label is candidate
     0, the negatives follow; a negative may equal the label."""
     candidates = torch.cat([labels.long()[:, None], negatives.long()], dim=1)  # (B, 1+n)
-    logits = similarity_scores(pooled.float(), item_embeddings[candidates].float(), temp)
+    return sampled_softmax_from_candidates(pooled, item_embeddings[candidates], temp)
+
+
+def sampled_softmax_from_candidates(pooled: torch.Tensor, candidate_embeddings: torch.Tensor,
+                                    temp: float) -> torch.Tensor:
+    """Sampled softmax over per-row candidates ``(B, 1+n, H)``, the label
+    first."""
+    logits = similarity_scores(pooled.float(), candidate_embeddings.float(), temp)
     return -torch.log_softmax(logits, dim=-1)[:, 0].mean()
 
 

@@ -39,12 +39,22 @@ def fold_in(seed: int, step: int) -> int:
 
 class StepRNG:
     def __init__(self, seed: int, device="cpu"):
+        self.seed = int(seed)
         dev = torch.device(device)
         self.host = torch.Generator().manual_seed(int(seed))
         if dev.type == "cpu":
             self.device = self.host
         else:
             self.device = torch.Generator(dev).manual_seed(int(seed))
+
+
+def head_group_rng(rng: StepRNG, index: int) -> StepRNG:
+    """The generators of one head group's attention-probability draws under
+    tensor parallelism: one seed drawn from ``rng.host`` (so ``rng`` moves on
+    alike on every rank of the group) and folded with the group's
+    ``index``, as JAX folds ``axis_index`` into its dropout key."""
+    seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=rng.host))
+    return StepRNG(fold_in(seed, index), rng.device.device)
 
 
 def capture(rng):

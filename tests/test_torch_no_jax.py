@@ -26,7 +26,9 @@ def test_importing_every_module_loads_no_jax():
                  "cli.convert_ckpt", "pipelines.transactional",
                  "pipelines.synthetic_transactions", "native", "pipelines.synthetic",
                  "utils.clustering", "cli.cluster", "pipelines.amazon", "utils.profiling",
-                 "examples.synthetic_end_to_end"):
+                 "examples.synthetic_end_to_end", "parallel.mesh", "parallel.collectives",
+                 "parallel.catalog", "parallel.tensor", "parallel.dryrun", "cli.pretrain",
+                 "cli.serve"):
         assert f"recformer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -61,7 +63,8 @@ def test_sources_name_no_jax():
             "profile_torch_finetune.py", "finetune_classification.py", "convert_ckpt.py",
             "transactional.py", "synthetic_transactions.py", "batcher.cpp", "tokenizer.cpp",
             "synthetic.py", "clustering.py", "cluster.py", "amazon.py", "profiling.py",
-            "synthetic_end_to_end.py"} <= names
+            "synthetic_end_to_end.py", "mesh.py", "collectives.py", "catalog.py", "tensor.py",
+            "dryrun.py", "pretrain.py", "serve.py"} <= names
     for path in sources:
         with open(path) as f:
             text = f.read()
