@@ -10,7 +10,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    ``nvcc`` per source, all started together;
 3. kernel_check: both attention kernels against their plain PyTorch versions
    on the same inputs, at the shapes of the JAX kernel tests, at the two
-   Recformer-base shapes, at the analytics tower's (64, 1024) and at the
+   Recformer-base shapes, at the analytics tower's (64, 1024), at the
+   tensor-parallel phases' views (16 x 1024 and 16 x 128, 6 heads) and at the
    tensor-core versions' edges (L off the
    tiles, tiles of padding rows, no valid global, the global row away from
    0, eight globals unfused, many (batch, head) pairs), float32 and
@@ -63,7 +64,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    (64 users, a fresh catalog, then encode_items' saved catalog: the same
    metrics) at base width under ``--embed_ln_impl pallas``, launches of
    kernels 1 and 3 as the code says;
-10. pretrain_step: 10 base-width pretraining steps at batch 8 (two views,
+10. pretrain_step: 20 base-width pretraining steps at batch 8 (two views,
     fused clean+MLM towers, dropout 0.1, AdamW), steps/s, the whole-word
     MLM's time, peak memory, the device kernels of one step
     (``torch.profiler``); then 10 steps on one fixed batch with dropout
@@ -179,7 +180,9 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     cuda``, its six stages ending in ``ALL STAGES COMPLETE``;
 30. a world of 2 ranks on the card, started with ``torch.distributed.run
     --standalone`` (this script in rank mode; ``gloo`` with CUDA tensors,
-    since NCCL refuses two ranks on one device): dist_check, each
+    since NCCL refuses two ranks on one device; every rank under PyTorch's
+    deterministic algorithms, turned on before any CUDA work, as tensor
+    parallelism needs): dist_check, each
     collective of ``parallel/collectives.py`` against local arithmetic, bit
     for bit; dp_pretrain_step, base width, batch 8 a rank, dropout 0.1,
     ``contrastive_gradient='full'``, 2 warm-up + 10 timed steps (each
@@ -187,9 +190,11 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     then the float32 gradients of one deterministic step over the 2 ranks
     (a global batch of 8, 4 a rank) against the one-rank step on that batch
     (the gate of 11); dp_local_step, ``'local'`` on one fixed batch without
-    dropout, whose loss must fall; zero_step, ZeRO's launches and AdamW
-    state a rank beside plain DP's (the share the placement rule predicts),
-    its updates bit-equal to plain DP's given the same gradients; tp_step,
+    dropout, 6 steps, whose loss must fall; zero_step, 3 steps of one
+    backward each updated by plain DP's AdamW and by ZeRO's: the updates
+    bit-equal, each one's AdamW state a rank (ZeRO's the share the
+    placement rule predicts) and host-timed update, the backward's
+    launches; tp_step,
     model 2 at batch 8 with dropout, both ``global_kv_mode``s, 6 heads a
     rank, 24/24 on the tensor cores, the replicated tensors equal across the
     ranks, the gathered float32 gradients against the one-rank step;
@@ -254,6 +259,8 @@ BWD_OUTPUTS = ("dq", "dk", "dv", "dgk", "dgv", "dgout")
 BASE_SHAPES = {"item_tower": (256, 128), "sequence_tower": (16, 1024)}  # (B, L), H=12 D=64 W=64
 # cli.cluster's sequence tower: kernel 1 (forward only) at 64 histories
 ANALYTICS_SHAPE = {"analytics_tower": (64, 1024)}
+# the pretraining step's two views at batch 8 under tensor parallelism 2: (2B, L), H = 6
+TP_SHAPES = {"tp_sequence_view": (16, 1024), "tp_item_view": (16, 128)}
 
 
 T_START = time.perf_counter()
@@ -439,6 +446,10 @@ def check_kernels(gen):
     rng = np.random.default_rng(0)
     for name, (B, L) in {**BASE_SHAPES, **ANALYTICS_SHAPE}.items():
         cases[name] = dict(B=B, L=L, H=12, D=64, window=64,
+                           lengths=rng.integers(L // 4, L + 1, size=B).tolist())
+    # the tensor-parallel phases' views: 6 of the 12 heads a rank
+    for name, (B, L) in TP_SHAPES.items():
+        cases[name] = dict(B=B, L=L, H=12 // 2, D=64, window=64,
                            lengths=rng.integers(L // 4, L + 1, size=B).tolist())
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1382,7 +1393,7 @@ def launches_per_step(cfg) -> dict:
 
 
 def run_pretrain_step(seed, card, phase="pretrain_step", baseline=None, **flags):
-    """10 timed base-width pretraining steps (after 2 warm-up steps) with
+    """20 timed base-width pretraining steps (after 2 warm-up steps) with
     dropout 0.1 under ``RecformerConfig.base(**flags)``, launch counts per
     step, then 10 steps on one fixed batch with dropout off, whose loss must
     fall. Returns the launch counts and the rates."""
@@ -1406,7 +1417,7 @@ def run_pretrain_step(seed, card, phase="pretrain_step", baseline=None, **flags)
         step(rng, table, item_ids, seq_lens)
     torch.cuda.synchronize()
 
-    n = 10
+    n = 20
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -1467,7 +1478,7 @@ def run_pretrain_step(seed, card, phase="pretrain_step", baseline=None, **flags)
 
 
 def run_pretrain_turns(seed, card, blocks=("default", "ln_kernels", "ln_kernels", "default"),
-                       steps=3):
+                       steps=10):
     """The default configuration and the LayerNorm kernels' configuration
     timed in turns in one process (``blocks`` of ``steps`` steps each, after
     2 warm-up steps of each), so that drift over the call falls on both."""
@@ -3424,10 +3435,11 @@ def rank_grad_gate(mesh, seed, tp_cfg=None) -> dict:
 
 def rank_zero_bit_equal(mesh, seed, steps=3) -> dict:
     """Plain data-parallel AdamW and ZeRO from one set of weights, handed the
-    same reduced gradients each step (the card's backward is not
-    deterministic: two backwards differ in the last bits): the parameters
-    after each update bit-equal; each one's AdamW state bytes, and the share
-    that the ZeRO rule predicts (whole moments for leaves it leaves alone)."""
+    same reduced gradients each step (one backward a step, shared): the
+    parameters after each update bit-equal; each one's AdamW state bytes,
+    and the share that the ZeRO rule predicts (whole moments for leaves it
+    leaves alone); the host-timed update of each, the backward's launches,
+    the losses and the peak (both models and optimizers held)."""
     from recformer_tpu_torch.config import RecformerConfig
     from recformer_tpu_torch.data.device_pipeline import make_pretrain_batch
     from recformer_tpu_torch.models.heads import RecformerForPretraining
@@ -3442,23 +3454,36 @@ def rank_zero_bit_equal(mesh, seed, steps=3) -> dict:
     opts = [create_optimizer(m, learning_rate=5e-5, warmup_steps=1, total_steps=10_000,
                              weight_decay=0.01, mesh=mesh, zero=z)
             for m, z in zip(models, (False, True))]
-    equal = []
+    equal, losses, update_s = [], [], {"plain": 0.0, "zero": 0.0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
     for i in range(steps):
         rng = StepRNG(fold_in(seed, i), "cuda")
         ba, bb = make_pretrain_batch(rng.device, table, ids, lens, cfg)
-        pretrain_backward(cfg, models[0], take_rows(ba, mesh), take_rows(bb, mesh),
-                          StepRNG(fold_in(rng.seed, mesh.data_rank), "cuda"), mesh)
+        metrics = pretrain_backward(cfg, models[0], take_rows(ba, mesh), take_rows(bb, mesh),
+                                    StepRNG(fold_in(rng.seed, mesh.data_rank), "cuda"), mesh)
+        losses.append(float(metrics["loss"]))
         for p, q in zip(models[0].parameters(), models[1].parameters()):
             q.grad = p.grad.clone()
-        for o in opts:
+        for name, o in zip(update_s, opts):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             o.step()
+            torch.cuda.synchronize()
+            update_s[name] += time.perf_counter() - t0
         equal.append(all(torch.equal(p, q) for p, q in zip(models[0].parameters(),
                                                             models[1].parameters())))
+    counts = read_counts()
     params = list(models[0].parameters())
     total = sum(p.numel() for p in params)
     rule = sum(p.numel() / (mesh.n_data if zero_shardable(p, mesh.n_data) else 1)
                for p in params) / total
-    out = dict(bit_equal=all(equal), bit_equal_per_update=equal,
+    out = dict(steps=steps, steps_per_s=None, losses=losses, counts=counts,
+               launches_per_step={k: counts[k] / steps for k in COUNTERS},
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               update_ms={k: 1e3 * v / steps for k, v in update_s.items()},
+               bit_equal=all(equal), bit_equal_per_update=equal,
                plain_optimizer_state_bytes=opts[0].state_bytes(),
                zero_optimizer_state_bytes=opts[1].state_bytes(), rule_share=rule,
                unsharded=[n for n, p in models[0].named_parameters()
@@ -3491,16 +3516,12 @@ def rank_world2(args) -> dict:
 
     cfg0 = cfg.replace(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
                        contrastive_gradient="local")
-    run, model, one = rank_train(cfg0, dp, seed, 8 * dp.n_data, warmup=0, steps=10, lr=1e-4,
+    run, model, one = rank_train(cfg0, dp, seed, 8 * dp.n_data, warmup=0, steps=6, lr=1e-4,
                                  fixed_seed=seed + 5)
     del model, one
     out["dp_local_step"] = run
 
-    zero, model, one = rank_train(cfg, dp, seed, 8 * dp.n_data, warmup=0, steps=3, zero=True)
-    del model, one
-    torch.cuda.empty_cache()
-    zero.update(rank_zero_bit_equal(dp, seed))
-    out["zero_step"] = zero
+    out["zero_step"] = rank_zero_bit_equal(dp, seed)
 
     tp = make_mesh(2, "cuda", timeout_s=RANK_TIMEOUT_S)
     out["tp_step"] = {}
@@ -3648,7 +3669,9 @@ def rank_main(args) -> int:
     """Rank mode (under torchrun): run ``--rank-task`` and write this rank's
     results to ``--rank-out``/rank<r>.json."""
     from recformer_tpu_torch.parallel.mesh import destroy
+    from recformer_tpu_torch.parallel.tensor import deterministic_replicas
 
+    deterministic_replicas()  # every world runs tensor parallelism: before any CUDA work
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tasks = {"world2": rank_world2, "world4": rank_world4}
@@ -3668,7 +3691,7 @@ def check_training(phase, per_rank, expected, card, backend, **extra):
     ok = ok and all(math.isfinite(x) for r in per_rank for x in r["losses"])
     rank0 = per_rank[0]
     emit(phase, backend=backend, world=len(per_rank), steps=rank0["steps"],
-         steps_per_s=rank0["steps_per_s"],
+         steps_per_s=rank0.get("steps_per_s"),
          peak_memory_gib_per_rank=[r["peak_memory_gib"] for r in per_rank],
          launches_per_step_per_rank=[{k: r["launches_per_step"][k] for k in COUNTERS if
                                       r["launches_per_step"][k]} for r in per_rank],
@@ -3731,6 +3754,8 @@ def run_world2(seed, card, plan_path):
     share = [r["zero_optimizer_state_bytes"] / r["plain_optimizer_state_bytes"] for r in per]
     counts["zero_step"] = check_training(
         "zero_step", per, launches_per_step(cfg), card, backend,
+        peak_holds="the plain and the ZeRO model and optimizer",
+        update_ms_per_rank=[r["update_ms"] for r in per],
         bit_equal_to_plain_dp=[r["bit_equal_per_update"] for r in per],
         adamw_state_gib_per_rank=[r["zero_optimizer_state_bytes"] / 2 ** 30 for r in per],
         plain_dp_adamw_state_gib_per_rank=[r["plain_optimizer_state_bytes"] / 2 ** 30

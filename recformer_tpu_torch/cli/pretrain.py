@@ -29,11 +29,13 @@ parallelism only). The flags are validated as the JAX CLI's
 sequence_parallel``) are validated too, then refused: they come with the next
 port slice. ``--batch_size`` is per data rank: every rank walks the same
 global batches of ``batch_size x n_data`` rows and keeps its data rank's
-(``training/steps.py``). Rank 0 alone writes logs, the mirror and the
-checkpoints, which hold whole tensors (gathered under tensor parallelism), so
-a one-rank run reads them; ``--resume`` loads the whole train state and
-shards it again. A SIGTERM/SIGINT latched on any rank is reduced over the
-world at the step boundary, so every rank stops at the same step.
+(``training/steps.py``), in training and in validation, whose contrastive
+accuracy is over the gathered global batch. Rank 0 alone writes logs, the
+mirror and the checkpoints, which hold whole tensors (gathered under tensor
+parallelism), so a one-rank run reads them; ``--resume`` loads the whole
+train state and shards it again. A SIGTERM/SIGINT latched on any rank is
+reduced over the world (a ``gloo`` group of CPU tensors) at the step
+boundary, so every rank stops at the same step.
 
 Metric rows, as the JAX CLI writes them: ``loss``, ``accuracy``, the other
 step metrics and ``examples_per_sec`` each time the step count crosses a
@@ -82,8 +84,8 @@ from ..training.checkpoint import (
 )
 from ..parallel.collectives import pmax
 from ..parallel.mesh import destroy, make_mesh, world_size
-from ..parallel.tensor import (gather_state_dict_tp, shard_model_tp, shard_state_dict_tp,
-                               tp_config, validate_tp_config)
+from ..parallel.tensor import (deterministic_replicas, gather_state_dict_tp, shard_model_tp,
+                               shard_state_dict_tp, tp_config, validate_tp_config)
 from ..training.optimizer import create_optimizer
 from ..training.steps import make_pretrain_eval_step, make_pretrain_step
 from ..utils.device import resolve_device
@@ -271,6 +273,8 @@ def main(argv=None):
     config = build_config(args)
     n_world = world_size()
     config, n_model, mode = _resolve_parallelism(args, config, n_world)
+    if mode == "tp":  # before any CUDA work (see deterministic_replicas)
+        deterministic_replicas()
     mesh = make_mesh(n_model, args.device) if n_world > 1 else None
     try:
         return _train(args, config, mesh)
@@ -336,7 +340,7 @@ def _train(args, config, mesh):
         grad_accum_steps=args.gradient_accumulation_steps, mesh=mesh,
         zero=args.zero and mesh is not None)
     step = make_pretrain_step(config, model, optimizer, mesh)
-    eval_step = make_pretrain_eval_step(config, model)
+    eval_step = make_pretrain_eval_step(config, model, mesh)
 
     def whole_params():
         """The whole parameters (gathered over the model ranks: every rank
@@ -390,10 +394,11 @@ def _train(args, config, mesh):
 
     def stop_signal() -> int:
         """The latched signal, the largest over the world: every rank stops
-        at the same step boundary."""
+        at the same step boundary. Reduced on the host, so the host does
+        not wait for the card's queued steps."""
         if mesh is None:
             return preempt["signal"]
-        return int(pmax(torch.tensor(float(preempt["signal"]), device=device), None))
+        return int(pmax(torch.tensor(preempt["signal"]), mesh.host_group))
 
     def run_steps(pending):
         """The pending batches' steps back to back; the mean of each metric."""

@@ -14,7 +14,10 @@ even, else 1) it runs one step each of
 - the ``'local'`` contrastive-gradient step;
 
 and prints one line for each, from rank 0. Sequence and pipeline
-parallelism are not ported yet.
+parallelism are not ported yet. Under ``main`` every step runs with
+PyTorch's deterministic algorithms (``tensor.deterministic_replicas``);
+a caller of :func:`dryrun` that runs the tensor-parallel step on the card
+turns them on first.
 
     python -m torch.distributed.run --standalone --nproc_per_node N \\
         -m recformer_tpu_torch.parallel.dryrun [--device cpu]
@@ -36,7 +39,7 @@ from ..training.steps import make_finetune_step, make_pretrain_step
 from ..utils.rng import StepRNG
 from .catalog import shard_rows
 from .mesh import destroy, make_mesh
-from .tensor import shard_model_tp, tp_config
+from .tensor import deterministic_replicas, shard_model_tp, tp_config
 
 
 def synthetic_table(cfg, n_items: int, seed: int = 0):
@@ -126,6 +129,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    deterministic_replicas()  # for the tensor-parallel step, before any CUDA work
     try:
         dryrun(args.device)
     finally:

@@ -69,6 +69,7 @@ class Mesh:
     backend: str
     data_group: Optional[dist.ProcessGroup]
     model_group: Optional[dist.ProcessGroup]
+    host_group: Optional[dist.ProcessGroup] = None  # gloo over the world, for CPU tensors
     owns_world: bool = False  # whether making it set up the default process group
 
     @property
@@ -124,8 +125,11 @@ def make_mesh(n_model: int = 1, device="cuda", timeout_s: float = DEFAULT_TIMEOU
         g = dist.new_group([d * n_model + m for d in range(n_data)], timeout=timeout)
         if rank % n_model == m:
             data_group = g
+    # host-side flags (the preemption signal) are reduced as CPU tensors over
+    # gloo, which never waits on the card's stream
+    host_group = dist.new_group(backend="gloo", timeout=timeout)
     mesh = Mesh(n_data, n_model, rank, dev, dist.get_backend(), data_group, model_group,
-                owns_world)
+                host_group, owns_world)
     if rank == 0:
         print(f"[mesh] {mesh.describe()}", flush=True)
     return mesh

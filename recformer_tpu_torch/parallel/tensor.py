@@ -103,21 +103,31 @@ def deterministic_replicas() -> None:
     gradients from the same values, so they are equal only if every kernel
     that computes them is deterministic. The card's defaults are not (some
     backward kernels accumulate in a varying order), so this turns on
-    PyTorch's deterministic algorithms (warning, not raising, where an op
-    has none) and the cuBLAS workspace setting they need."""
+    PyTorch's deterministic algorithms, raising where an op has none, and
+    sets the cuBLAS workspace they need. cuBLAS reads that setting once, so
+    an entry point calls this before any CUDA work; :func:`shard_model_tp`
+    refuses a model on the card without it."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.use_deterministic_algorithms(True)
+
+
+def _deterministic() -> bool:
+    return (torch.are_deterministic_algorithms_enabled()
+            and not torch.is_deterministic_algorithms_warn_only_enabled())
 
 
 @torch.no_grad()
 def shard_model_tp(model: nn.Module, mesh) -> nn.Module:
     """Keep this rank's slice of every split parameter of ``model`` (a whole
     model, the same on every rank) and hand the mesh to the modules that
-    run sharded; turns on :func:`deterministic_replicas`. Returns the
-    model."""
+    run sharded. A model on the card needs :func:`deterministic_replicas`
+    first. Returns the model."""
     from ..models.encoder import BlockOutput, Intermediate, LongformerSelfAttention
 
-    deterministic_replicas()
+    if any(p.is_cuda for p in model.parameters()) and not _deterministic():
+        raise RuntimeError("tensor parallelism on the card needs deterministic_replicas(), "
+                           "called by the entry point before any CUDA work: without it the "
+                           "replicated parameters drift apart across the model group")
     validate_tp_config(model.config, mesh.n_model)
     if model.config.attention_head_shard_axis != MODEL_AXIS:
         raise ValueError("a tensor-parallel model needs tp_config(config)")

@@ -154,16 +154,24 @@ def make_pretrain_step(config: RecformerConfig, model, optimizer, mesh=None):
     return step
 
 
-def make_pretrain_eval_step(config: RecformerConfig, model):
+def make_pretrain_eval_step(config: RecformerConfig, model, mesh=None):
     """step(generator, table, item_ids, seq_lens) -> {val_loss, cl_correct,
-    cl_total}: the batch drawn from ``generator``, a deterministic forward."""
+    cl_total}: the batch drawn from ``generator``, a deterministic forward.
+    Under a mesh the ids are the global batch's, every rank draws the same
+    pairs and masks and keeps its data rank's rows, and the contrastive
+    negatives are gathered over the data group: the values are the
+    one-device ones on the global batch."""
 
     @torch.no_grad()
     def step(generator, table, item_ids, seq_lens) -> Dict[str, torch.Tensor]:
         batch_a, batch_b = make_pretrain_batch(generator, table, item_ids, seq_lens, config)
+        group = None
+        if mesh is not None:
+            batch_a, batch_b = take_rows(batch_a, mesh), take_rows(batch_b, mesh)
+            group = mesh.data_group
         out = model(batch_a, batch_b, deterministic=True)
-        loss, metrics = pretrain_loss(config, out, batch_a, batch_b)
-        return {"val_loss": loss, "cl_correct": metrics["cl_correct"],
+        _, metrics = pretrain_loss(config, out, batch_a, batch_b, group)
+        return {"val_loss": metrics["loss"], "cl_correct": metrics["cl_correct"],
                 "cl_total": metrics["cl_total"]}
 
     return step

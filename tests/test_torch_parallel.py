@@ -13,6 +13,8 @@ and tolerances (``tests/test_parallel.py``):
   (one SGD update each, rtol 1e-4, atol 1e-5);
 - ZeRO bit-equal to the replicated AdamW update, its moments half the
   size, its whole state equal and restorable;
+- the pretraining eval step under data parallelism: each rank forwards its
+  rows only, and the values equal the one-rank step's on the global batch;
 - the dropout streams under tensor parallelism:
   head groups draw different attention seeds, the step generator stays in
   step and the hidden dropout leaves the group's outputs equal.
@@ -160,12 +162,15 @@ def world2(pretrain_setup, tmp_path_factory):
     ttable = {k: t(v) for k, v in table.items()}
     tp_batch = to_torch_batch({k: v for k, v in ba.items() if not k.startswith("mlm")})
     inputs = dict(
-        scenarios={"catalog": 2, "dp_full": 1, "local": 1, "zero": 1, "dropout_streams": 2},
+        scenarios={"catalog": 2, "dp_full": 1, "local": 1, "dp_eval": 1, "zero": 1,
+                   "dropout_streams": 2},
         catalog=[tcase(c) for c in cases],
         dp_full=dict(cfg=port_cfg, state=state, batch_a=to_torch_batch(ba),
                      batch_b=to_torch_batch(bb), lr=lr),
         local=dict(cfg=dict(port_cfg, contrastive_gradient="local"), state=state,
                    batches=per_shard, lr=lr),
+        dp_eval=dict(cfg=port_cfg, state=state, table=ttable, item_ids=t(item_ids),
+                     seq_lens=t(seq_lens), seed=3),
         zero=dict(cfg=dict(port_cfg, hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1),
                   state=state, table=ttable, item_ids=t(item_ids), seq_lens=t(seq_lens)),
         dropout_streams=dict(cfg=dict(port_cfg, hidden_dropout_prob=0.1,
@@ -174,7 +179,8 @@ def world2(pretrain_setup, tmp_path_factory):
                              state=seq_state, batch=tp_batch),
     )
     ranks = run_world(2, inputs, tmp_path_factory.mktemp("world2"))
-    return dict(ranks=ranks, cases=cases, lr=lr)
+    return dict(ranks=ranks, cases=cases, lr=lr, port_cfg=port_cfg, state=state,
+                dp_eval=inputs["dp_eval"])
 
 
 def test_sharded_catalog_matches_jax_at_model_size_2(world2):
@@ -225,6 +231,31 @@ def test_local_step_matches_jax_local_step(world2, pretrain_setup):
         for name, w in want.items():
             np.testing.assert_allclose(got["params"][name].numpy(), w.numpy(), err_msg=name,
                                        **STEP_TOL)
+
+
+def test_dp_eval_step_shards_rows_and_equals_one_rank(world2):
+    """Validation under data parallelism: each rank's forward sees its 4 rows
+    of the global 8, and the contrastive counts (over the gathered batch)
+    and the loss equal the one-rank eval step's on the whole batch. The
+    preemption flag's host group is gloo and reduces CPU tensors."""
+    from recformer_tpu_torch.config import RecformerConfig as PortConfig
+    from recformer_tpu_torch.models.heads import RecformerForPretraining as PortPretrain
+    from recformer_tpu_torch.training.steps import make_pretrain_eval_step
+
+    d = world2["dp_eval"]
+    cfg = PortConfig.tiny(**world2["port_cfg"])
+    model = PortPretrain(cfg)
+    model.load_state_dict(world2["state"], strict=True)
+    want = make_pretrain_eval_step(cfg, model)(torch.Generator().manual_seed(d["seed"]),
+                                               d["table"], d["item_ids"], d["seq_lens"])
+    for r in world2["ranks"]:
+        got = r["dp_eval"]
+        assert got["rows"] == [4]
+        assert float(got["metrics"]["cl_total"]) == float(want["cl_total"]) == 8
+        assert float(got["metrics"]["cl_correct"]) == float(want["cl_correct"])
+        np.testing.assert_allclose(float(got["metrics"]["val_loss"]), float(want["val_loss"]),
+                                   rtol=1e-5)
+        assert got["host_backend"] == "gloo" and got["flag"] == 3
 
 
 def test_zero_is_bit_equal_to_the_replicated_update(world2):

@@ -171,6 +171,29 @@ def local(mesh, inp):
     return dict(params=_params(model), loss=metrics["loss"], cl_total=metrics["cl_total"])
 
 
+def dp_eval(mesh, inp):
+    """The pretraining eval step on this data rank's rows of a global batch
+    (the rows each forward saw, and the metrics), and a host flag reduced
+    over the mesh's host group, as ``cli.pretrain``'s preemption signal."""
+    import torch.distributed as dist
+
+    from recformer_tpu_torch.models.heads import RecformerForPretraining
+    from recformer_tpu_torch.parallel.collectives import pmax
+    from recformer_tpu_torch.training.steps import make_pretrain_eval_step
+
+    d = inp["dp_eval"]
+    cfg, model = _model(RecformerForPretraining, d["cfg"], d["state"])
+    rows = []
+    model.register_forward_pre_hook(
+        lambda mod, args: rows.append(next(iter(args[0].values())).shape[0]))
+    step = make_pretrain_eval_step(cfg, model, mesh)
+    metrics = step(torch.Generator().manual_seed(d["seed"]), d["table"], d["item_ids"],
+                   d["seq_lens"])
+    flag = pmax(torch.tensor(3 * mesh.rank), mesh.host_group)
+    return dict(metrics=metrics, rows=rows, flag=int(flag),
+                host_backend=dist.get_backend(mesh.host_group))
+
+
 def zero(mesh, inp):
     """Two AdamW steps (dropout on) replicated and under ZeRO from one set
     of weights; then a ZeRO optimizer restored from the replicated one's
@@ -260,7 +283,7 @@ def tensor_parallel(mesh, inp):
     return out
 
 
-SCENARIOS = {f.__name__: f for f in (catalog, dp_full, local, zero, dropout_streams,
+SCENARIOS = {f.__name__: f for f in (catalog, dp_full, local, dp_eval, zero, dropout_streams,
                                       tensor_parallel)}
 
 
