@@ -185,12 +185,12 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     parallelism needs): dist_check, each
     collective of ``parallel/collectives.py`` against local arithmetic, bit
     for bit; dp_pretrain_step, base width, batch 8 a rank, dropout 0.1,
-    ``contrastive_gradient='full'``, 2 warm-up + 10 timed steps (each
+    ``contrastive_gradient='full'``, 1 warm-up + 3 timed steps (each
     rank's launches a step, 24/24 on the tensor cores, peak GiB, steps/s),
     then the float32 gradients of one deterministic step over the 2 ranks
     (a global batch of 8, 4 a rank) against the one-rank step on that batch
     (the gate of 11); dp_local_step, ``'local'`` on one fixed batch without
-    dropout, 6 steps, whose loss must fall; zero_step, 3 steps of one
+    dropout, 6 steps, whose loss must fall; zero_step, 2 steps of one
     backward each updated by plain DP's AdamW and by ZeRO's: the updates
     bit-equal, each one's AdamW state a rank (ZeRO's the share the
     placement rule predicts) and host-timed update, the backward's
@@ -204,7 +204,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     relative, and no padded id for users whose every score is negative;
 31. dp_tp_step_ln_kernels: a world of 4 (data 2 x model 2) under
     ``embed_ln_impl='pallas'``, ``ln_impl='pallas_bwd'`` and ``--remat
-    --remat_policy save_attention``, 5 steps: launches a step as the code
+    --remat_policy save_attention``, 2 steps: launches a step as the code
     says (kernel 1 not relaunched in the backward), each LayerNorm launch
     one device kernel;
 32. parallel_clis, run by the world of 2 after its other phases, one
@@ -213,18 +213,41 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     ranks, the same ids as one rank; ``cli.pretrain --model_size base
     --tensor_parallel 2``, its ``best.pt`` whole and read by a one-rank
     ``cli.finetune`` for one epoch a stage; ``cli.pretrain --zero`` on 2
-    data ranks with a SIGTERM on rank 1 alone after step 5: both ranks stop
-    at step 5, and ``--resume`` runs to the end;
+    data ranks with a SIGTERM on rank 1 alone after step 2: both ranks stop
+    at step 2, and ``--resume`` runs to the end;
 33. parallel_dryrun: ``parallel/dryrun.py``'s ``dryrun`` (what ``python -m
     recformer_tpu_torch.parallel.dryrun`` runs) at the end of the worlds of 2
-    and 4: every step's loss finite and equal on every rank.
+    and 4: every step's loss finite and equal on every rank (its sequence-
+    and pipeline-parallel forwards in both worlds, their steps in the world
+    of 4);
+34. sp_attention_check, in the world of 2 on a ``seq`` mesh of 2: the
+    sequence-parallel op (``parallel/sequence.py``) at the history view's
+    (16, 1024, 12, 64), window 64, padded rows and the CLS global on shard
+    0, against ``chunked_attention`` on the whole inputs, float32 and bf16:
+    the forward on max abs error (<= 1e-4 / 2e-2), each of its six
+    gradients on max|err| / max|ref| (<= 1e-4 / 1e-2);
+35. sp_step and pp_step in the world of 2 (seq 2; pipe 2 with 2
+    microbatches and ``scan_layers``), sp_step_dp and pp_step_dp in the
+    world of 4 (data 2 x seq 2, data 2 x pipe 2): base width, batch 8 a
+    data rank, dropout 0.1, 1 warm-up + 5 timed steps: launches a step on
+    each rank as the code says (none of kernels 1-2 under sp; 24/24 under
+    pp, all on the tensor cores), peak GiB, steps/s, the device kernels of
+    one profiled step; then the float32 gradients of one deterministic step
+    against the one-rank step (cosine > 0.9999, each attention projection
+    within 1e-3 relative);
+36. parallel_cli_pretrain_sp, parallel_cli_pretrain_pp, run by the world of
+    2 after the other CLIs: ``cli.pretrain --sequence_parallel 2
+    --attention_impl sequence_parallel`` and ``--pipeline 2 --scan_layers
+    --microbatches 2`` (a SIGTERM on rank 1 alone after step 2, then
+    ``--resume``) on pretrain_cli's corpus, each ``best.pt`` whole and read
+    by a one-rank ``cli.finetune`` for one epoch a stage.
 
 Launch counts, set to 0 just before each path and read just after, show that
 the paths ran the kernels (each kernel on its path at least once; the
 probes' path is probe_time), as many times as the code says they must (the
 attention kernels' tensor-core launches among them: every forward of
 serving, all 24 forwards and 24 backwards of a bf16 pretraining step and
-the 12 and 12 of a finetune or fraud step; the ranks of 30-32 report theirs,
+the 12 and 12 of a finetune or fraud step; the ranks of 30-36 report theirs,
 added over the ranks). Then the command time, the kernels line,
 the card line and, last, the result line. Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
@@ -1567,14 +1590,16 @@ def grad_stats(ga, gb):
     return cos, share, rel
 
 
-def gate_grads(phase, pattern, min_gated, cos, share, rel, **record):
-    """cosine > 0.999, and every tensor whose name matches ``pattern`` and
-    that carries more than 1e-10 of the squared norm within 1e-3 relative."""
+def gate_grads(phase, pattern, min_gated, cos, share, rel, min_cos=0.999, **record):
+    """cosine > ``min_cos``, and every tensor whose name matches ``pattern``
+    and that carries more than 1e-10 of the squared norm within 1e-3
+    relative."""
     gated = [n for n in rel if pattern.search(n) and share[n] > 1e-10]
     worst = max(gated, key=rel.get)
     worst_any = max(rel, key=rel.get)
-    ok = cos > 0.999 and len(gated) >= min_gated and rel[worst] <= 1e-3
-    emit(phase, dtype="float32", grad_cosine=cos, **record, tensors_gated=len(gated),
+    ok = cos > min_cos and len(gated) >= min_gated and rel[worst] <= 1e-3
+    emit(phase, dtype="float32", grad_cosine=cos, min_cosine=min_cos, **record,
+         tensors_gated=len(gated),
          worst_gated_tensor=worst, worst_gated_rel_err=rel[worst],
          worst_gated_norm_share=share[worst], worst_tensor=worst_any,
          worst_rel_err=rel[worst_any], worst_tensor_norm_share=share[worst_any], ok=ok)
@@ -3346,10 +3371,13 @@ def seeded_model(cls, cfg, seed):
     return model_on_card(cls, cfg, _SEEDED[key])
 
 
-def rank_train(cfg, mesh, seed, batch, warmup, steps, zero=False, lr=5e-5, fixed_seed=None):
+def rank_train(cfg, mesh, seed, batch, warmup, steps, zero=False, lr=5e-5, fixed_seed=None,
+               make=None):
     """A model from ``seed`` and ``steps`` timed steps of ``make_pretrain_step``
-    over ``mesh`` (after ``warmup``): launch counts and peak memory of this
-    rank, losses, steps/s. ``fixed_seed``: the same draws every step."""
+    (or of ``make(cfg, model, optimizer, mesh)``: the sequence- and
+    pipeline-parallel steps) over ``mesh`` (after ``warmup``): launch counts
+    and peak memory of this rank, losses, steps/s. ``fixed_seed``: the same
+    draws every step."""
     from recformer_tpu_torch.models.heads import RecformerForPretraining
     from recformer_tpu_torch.parallel.tensor import shard_model_tp
     from recformer_tpu_torch.training.optimizer import create_optimizer
@@ -3358,12 +3386,12 @@ def rank_train(cfg, mesh, seed, batch, warmup, steps, zero=False, lr=5e-5, fixed
 
     table, ids, lens = pretrain_world(cfg, seed, batch=batch)
     model = seeded_model(RecformerForPretraining, cfg, seed)
-    if mesh.n_model > 1:
+    if mesh.axis == "model" and mesh.n_model > 1:
         shard_model_tp(model, mesh)
     opt = create_optimizer(model, learning_rate=lr,
                            warmup_steps=1000 if fixed_seed is None else 2,
                            total_steps=10_000, mesh=mesh, zero=zero)
-    step = make_pretrain_step(cfg, model, opt, mesh)
+    step = (make or make_pretrain_step)(cfg, model, opt, mesh)
 
     def one():
         s = fixed_seed if fixed_seed is not None else fold_in(seed, opt.micro_steps)
@@ -3390,11 +3418,35 @@ def rank_train(cfg, mesh, seed, batch, warmup, steps, zero=False, lr=5e-5, fixed
 _ONE_RANK = {}
 
 
-def rank_grad_gate(mesh, seed, tp_cfg=None) -> dict:
+class _NoUpdate:
+    """An optimizer that takes no step: the gates read the gradients."""
+
+    def step(self):
+        pass
+
+
+def model_axis_step(kind):
+    """``make(cfg, model, optimizer, mesh)`` of the sequence-parallel
+    (``'sp'``) or pipeline-parallel (``'pp'``, 2 microbatches) step."""
+    from recformer_tpu_torch.parallel.pipeline import make_pipeline_pretrain_step
+    from recformer_tpu_torch.parallel.sequence import make_sp_pretrain_step
+
+    if kind == "sp":
+        return make_sp_pretrain_step
+    return lambda cfg, model, opt, mesh: make_pipeline_pretrain_step(cfg, model, opt, mesh, 2)
+
+
+SP_FLAGS = dict(attention_impl="sequence_parallel", global_kv_mode="full")
+PP_FLAGS = dict(scan_layers=True)
+
+
+def rank_grad_gate(mesh, seed, tp_cfg=None, kind=None) -> dict:
     """One deterministic float32 loss and backward of a base model over the
     mesh (this rank's rows of a global batch of 8; tensor-parallel when
-    ``tp_cfg`` is given: the gradients gathered whole) against the one-rank
-    loss and backward on the whole batch, on rank 0: grad_stats."""
+    ``tp_cfg`` is given: the gradients gathered whole; the sequence- or
+    pipeline-parallel step's backward when ``kind`` is ``'sp'`` or ``'pp'``:
+    the gradients whole on every rank) against the one-rank loss and
+    backward on the whole batch, on rank 0: grad_stats."""
     from recformer_tpu_torch.config import RecformerConfig
     from recformer_tpu_torch.data.device_pipeline import make_pretrain_batch
     from recformer_tpu_torch.models.heads import RecformerForPretraining
@@ -3405,16 +3457,23 @@ def rank_grad_gate(mesh, seed, tp_cfg=None) -> dict:
     cfg = RecformerConfig.base().replace(dtype="float32", hidden_dropout_prob=0.0,
                                          attention_probs_dropout_prob=0.0)
     pcfg = cfg if tp_cfg is None else tp_cfg(cfg)
+    if kind is not None:
+        pcfg = cfg.replace(**(SP_FLAGS if kind == "sp" else PP_FLAGS))
     table, ids, lens = pretrain_world(cfg, seed + 7)
     ba, bb = make_pretrain_batch(torch.Generator(device="cuda").manual_seed(seed), table, ids,
                                  lens, cfg)
     model = seeded_model(RecformerForPretraining, pcfg, seed)
-    if mesh.n_model > 1:
+    tp = mesh.axis == "model" and mesh.n_model > 1
+    if tp:
         shard_model_tp(model, mesh)
-    metrics = pretrain_backward(pcfg, model, take_rows(ba, mesh), take_rows(bb, mesh),
-                                StepRNG(0, "cuda"), mesh)
+    if kind is None:
+        metrics = pretrain_backward(pcfg, model, take_rows(ba, mesh), take_rows(bb, mesh),
+                                    StepRNG(0, "cuda"), mesh)
+    else:
+        step = model_axis_step(kind)(pcfg, model, _NoUpdate(), mesh)
+        metrics = step.backward(take_rows(ba, mesh), take_rows(bb, mesh), StepRNG(0, "cuda"))
     grads = {n: p.grad.float() for n, p in model.named_parameters()}
-    if mesh.n_model > 1:
+    if tp:
         grads = gather_state_dict_tp(grads, mesh)
     del model
     torch.cuda.empty_cache()
@@ -3433,7 +3492,7 @@ def rank_grad_gate(mesh, seed, tp_cfg=None) -> dict:
                 loss_one_rank=ref_loss)
 
 
-def rank_zero_bit_equal(mesh, seed, steps=3) -> dict:
+def rank_zero_bit_equal(mesh, seed, steps=2) -> dict:
     """Plain data-parallel AdamW and ZeRO from one set of weights, handed the
     same reduced gradients each step (one backward a step, shared): the
     parameters after each update bit-equal; each one's AdamW state bytes,
@@ -3493,11 +3552,95 @@ def rank_zero_bit_equal(mesh, seed, steps=3) -> dict:
     return out
 
 
+# the attention kernels' device names (band_attention_{fwd,bwd}.cu)
+BAND_KERNEL_NAME = re.compile(r"\b(band_\w*kernel)\b")
+SP_SHAPE = (16, 1024, 12, 64)  # the fused history view (B, L, H, D) at window 64
+SP_GRADS = ("dq", "dk", "dv", "dq_g", "dk_g", "dv_g")
+
+
+def rank_sp_attention_check(mesh, seed) -> dict:
+    """The sequence-parallel op over the mesh's seq group at the history
+    view's shape, window 64, rows padded to 1,024 down to 341 tokens, the CLS
+    global on shard 0, against ``chunked_attention`` on the whole inputs on
+    this rank, float32 and bf16: the forward's max abs error and each
+    gradient's max|err| / max|ref| for one random cotangent."""
+    from recformer_tpu_torch.ops.attention import chunked_attention
+    from recformer_tpu_torch.parallel.sequence import make_sequence_parallel_attention
+
+    B, L, H, D = SP_SHAPE
+    window = 64
+    run = make_sequence_parallel_attention(mesh, window)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        xs = [(torch.randn(B, L, H, D, generator=gen, device="cuda") * 0.5).to(dtype)
+              for _ in range(6)]
+        lengths = torch.linspace(L, L // 3, B, device="cuda").long()
+        mask = (torch.arange(L, device="cuda")[None] < lengths[:, None]).to(torch.int32)
+        mask[:, 0] = 2
+        cot = torch.randn(B, L, H, D, generator=gen, device="cuda") * 0.5
+        got = []
+        for fn in (lambda *a: run(*a, mask), lambda *a: chunked_attention(*a, mask, window)):
+            leaves = [x.clone().requires_grad_() for x in xs]
+            y = fn(*leaves)
+            (y.float() * cot).sum().backward()
+            got.append((y.detach(), [x.grad for x in leaves]))
+        (y, grads), (y_ref, grads_ref) = got
+        out[str(dtype).removeprefix("torch.")] = dict(
+            max_abs_err=float((y.float() - y_ref.float()).abs().max()),
+            rel_err={n: rel_err(a, b) for n, a, b in zip(SP_GRADS, grads, grads_ref)},
+            finite=bool(torch.isfinite(y.float()).all()) and all(
+                bool(torch.isfinite(g.float()).all()) for g in grads))
+        del got, xs, y, grads, y_ref, grads_ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def profiled_step(fn) -> dict:
+    """The device kernels of one more call of ``fn`` (``torch.profiler``):
+    their count, the attention kernels' device kernels by name, the busy ms
+    and the profiled wall ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof.events())
+    band = [m.group(1) for m in (BAND_KERNEL_NAME.search(e.name) for e in kernels) if m]
+    return dict(device_kernels=len(kernels), device_busy_ms=busy_ms(kernels),
+                profiled_wall_ms=wall, band_kernels={b: band.count(b) for b in sorted(set(band))})
+
+
+def rank_model_axis_step(mesh, seed, kind) -> dict:
+    """sp_step / pp_step and their data-parallel worlds: base width, batch 8
+    a data rank, dropout 0.1, 1 warm-up + 5 timed steps of the sequence-
+    (``kind='sp'``) or pipeline-parallel (``'pp'``, 2 microbatches) step
+    (launches a step, peak GiB, steps/s), the device kernels of one more
+    step, then its float32 gradient gate against the one-rank step."""
+    from recformer_tpu_torch.config import RecformerConfig
+
+    t0 = time.perf_counter()
+    cfg = RecformerConfig.base(**(SP_FLAGS if kind == "sp" else PP_FLAGS))
+    run, model, one = rank_train(cfg, mesh, seed, 8 * mesh.n_data, warmup=1, steps=5,
+                                 make=model_axis_step(kind))
+    run["profiled_step"] = profiled_step(one)
+    run["describe"] = mesh.describe()
+    del model, one
+    torch.cuda.empty_cache()
+    run["gate"] = rank_grad_gate(mesh, seed, kind=kind)
+    run["phase_seconds"] = time.perf_counter() - t0
+    return run
+
+
 def rank_world2(args) -> dict:
     """The phases of the world of 2: dist_check, dp_pretrain_step,
     dp_local_step and zero_step on a data-only mesh, then tp_step and
-    sharded_catalog on a model-only mesh, the dry run, and the parallel
-    CLIs of ``--rank-plan``."""
+    sharded_catalog on a model-only mesh, sp_attention_check and sp_step on
+    a seq mesh, pp_step on a pipe mesh, the dry run, and the parallel CLIs
+    of ``--rank-plan``."""
     from recformer_tpu_torch.config import RecformerConfig
     from recformer_tpu_torch.parallel.mesh import make_mesh
     from recformer_tpu_torch.parallel.tensor import tp_config, tp_split_dim
@@ -3508,7 +3651,7 @@ def rank_world2(args) -> dict:
     out["dist_check"] = rank_dist_check(dp)
 
     cfg = RecformerConfig.base()
-    run, model, one = rank_train(cfg, dp, seed, 8 * dp.n_data, warmup=2, steps=10)
+    run, model, one = rank_train(cfg, dp, seed, 8 * dp.n_data, warmup=1, steps=3)
     del model, one
     torch.cuda.empty_cache()
     run["gate"] = rank_grad_gate(dp, seed)
@@ -3527,7 +3670,7 @@ def rank_world2(args) -> dict:
     out["tp_step"] = {}
     for kv in ("thin", "full"):
         tcfg = tp_config(cfg.replace(global_kv_mode=kv))
-        run, model, one = rank_train(tcfg, tp, seed, 8, warmup=1, steps=2)
+        run, model, one = rank_train(tcfg, tp, seed, 8, warmup=1, steps=1)
         run["replicated_digests"] = {n: digest(p) for n, p in model.named_parameters()
                                      if tp_split_dim(n) is None}
         run["local_heads"] = (model.longformer.encoder.layer[0].attention.self.query.weight
@@ -3538,6 +3681,13 @@ def rank_world2(args) -> dict:
             c.replace(global_kv_mode=kv)))
         out["tp_step"][kv] = run
     out["sharded_catalog"] = rank_sharded_catalog(tp, seed)
+    sp = make_mesh(2, "cuda", timeout_s=RANK_TIMEOUT_S, axis="seq")
+    t0 = time.perf_counter()
+    out["sp_attention_check"] = rank_sp_attention_check(sp, seed)
+    out["sp_attention_check"]["phase_seconds"] = time.perf_counter() - t0
+    out["sp_step"] = rank_model_axis_step(sp, seed, "sp")
+    pp = make_mesh(2, "cuda", timeout_s=RANK_TIMEOUT_S, axis="pipe")
+    out["pp_step"] = rank_model_axis_step(pp, seed, "pp")
     out["parallel_dryrun"] = rank_dryrun()
     out["parallel_clis"] = rank_clis(args.rank_plan)
     return out
@@ -3603,8 +3753,9 @@ def rank_sharded_catalog(mesh, seed) -> dict:
 
 def rank_world4(args) -> dict:
     """dp_tp_step_ln_kernels: data 2 x model 2 under the LayerNorm kernels
-    and ``--remat --remat_policy save_attention``, 5 steps, and the device
-    kernels of one profiled step."""
+    and ``--remat --remat_policy save_attention``, 2 steps, and the device
+    kernels of one profiled step; sp_step_dp (data 2 x seq 2) and
+    pp_step_dp (data 2 x pipe 2); the dry run."""
     from recformer_tpu_torch.config import RecformerConfig
     from recformer_tpu_torch.parallel.mesh import make_mesh
     from recformer_tpu_torch.parallel.tensor import tp_config
@@ -3612,14 +3763,20 @@ def rank_world4(args) -> dict:
     mesh = make_mesh(2, "cuda", timeout_s=RANK_TIMEOUT_S)
     cfg = tp_config(RecformerConfig.base(embed_ln_impl="pallas", ln_impl="pallas_bwd",
                                          remat=True, remat_policy="save_attention"))
-    run, model, one = rank_train(cfg, mesh, args.seed, 8 * mesh.n_data, warmup=1, steps=5)
+    run, model, one = rank_train(cfg, mesh, args.seed, 8 * mesh.n_data, warmup=1, steps=2)
     names = kernels_per_call(one, warm=False)
     ln = [m.group(1) for m in map(LN_KERNEL_NAME.search, names) if m]
     run["layernorm_device_kernels_per_step"] = {k: ln.count(k) for k in sorted(set(ln))}
     run["device_kernels_per_step"] = len(names)
     del model, one
     torch.cuda.empty_cache()
-    return {"dp_tp_step_ln_kernels": run, "parallel_dryrun": rank_dryrun()}
+    out = {"dp_tp_step_ln_kernels": run}
+    out["sp_step_dp"] = rank_model_axis_step(
+        make_mesh(2, "cuda", timeout_s=RANK_TIMEOUT_S, axis="seq"), args.seed, "sp")
+    out["pp_step_dp"] = rank_model_axis_step(
+        make_mesh(2, "cuda", timeout_s=RANK_TIMEOUT_S, axis="pipe"), args.seed, "pp")
+    out["parallel_dryrun"] = rank_dryrun()
+    return out
 
 
 def rank_clis(plan_path) -> dict:
@@ -3652,13 +3809,14 @@ def rank_clis(plan_path) -> dict:
                 mod._install_preemption_handler = lambda: _SignalAfter(real(), n)
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
+        t0 = time.perf_counter()
         try:
             res = mod.main(run["args"])
         finally:
             for k, v in saved.items():
                 setattr(mod, k, v)
         torch.cuda.synchronize()
-        out[run["name"]] = dict(result=res, counts=read_counts(),
+        out[run["name"]] = dict(result=res, counts=read_counts(), seconds=time.perf_counter() - t0,
                                 peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3710,6 +3868,47 @@ def check_training(phase, per_rank, expected, card, backend, **extra):
 def gate_from(phase, gate, **record):
     gate_grads(phase, ATTN_PROJ, 4 * 12, gate["cos"], gate["share"], gate["rel"],
                loss_parallel=gate["loss"], loss_one_rank=gate["loss_one_rank"], **record)
+
+
+def model_axis_launches(cfg, kind, S=2, M=2) -> dict:
+    """Launches of each kernel one sequence- (``'sp'``) or pipeline-parallel
+    (``'pp'``) step makes on each rank, by reading the code: under ``'sp'``
+    no attention kernel (the op is plain PyTorch, the item tower the chunked
+    twin), the LayerNorm kernels as one rank's step (every rank runs every
+    layer on its slice); under ``'pp'`` a stage runs its L/S layers on M
+    microbatches a tower, so the per-layer kernels launch M/S times one
+    rank's count, and the embedding kernels once a tower on every stage."""
+    per = launches_per_step(cfg)
+    layer_kernels = ("band_attention_fwd", "band_attention_bwd", "band_attention_fwd_tc",
+                     "band_attention_bwd_tc", "layernorm_bwd")
+    if kind == "sp":
+        return {k: 0 if k.startswith("band_attention") else v for k, v in per.items()}
+    return {k: v * M // S if k in layer_kernels else v for k, v in per.items()}
+
+
+def check_model_axis(phase, per_rank, kind, card, backend, axes: dict, **extra):
+    """A sequence- or pipeline-parallel step's launches (``check_training``),
+    the device kernels of its profiled step (under ``'pp'`` one tensor-core
+    forward device kernel a launch, under ``'sp'`` none), and its float32
+    gradient gate against the one-rank step (cosine > 0.9999, dropout 0, a
+    global batch of 8). ``axes``: the mesh's shape, recorded with both."""
+    from recformer_tpu_torch.config import RecformerConfig
+
+    cfg = RecformerConfig.base(**(SP_FLAGS if kind == "sp" else PP_FLAGS))
+    expected = model_axis_launches(cfg, kind)
+    band = [r["profiled_step"]["band_kernels"] for r in per_rank]
+    want_fwd = expected["band_attention_fwd_tc"]
+    counts = check_training(phase, per_rank, expected, card, backend, **axes, **extra,
+                            transport=per_rank[0]["describe"].get("p2p"),
+                            phase_seconds_per_rank=[r["phase_seconds"] for r in per_rank],
+                            profiled_step=[r["profiled_step"] for r in per_rank])
+    if not all(b.get("band_attention_fwd_tc_kernel", 0) == want_fwd
+               and (want_fwd or not b) for b in band):
+        raise AssertionError(f"{phase}: the profiled step's attention kernels {band} "
+                             f"(expected {want_fwd} tensor-core forwards)")
+    gate_from(f"{phase}_vs_one_rank", per_rank[0]["gate"], min_cos=0.9999, **axes,
+              global_batch=8)
+    return counts
 
 
 def run_world2(seed, card, plan_path):
@@ -3794,6 +3993,24 @@ def run_world2(seed, card, plan_path):
     emit("sharded_catalog", backend=backend, world=2, users=64, k=10, cases=cases, ok=ok)
     if not ok:
         raise AssertionError(f"sharded_catalog: {[r['sharded_catalog'] for r in ranks]}")
+
+    checks = [r["sp_attention_check"] for r in ranks]
+    ok = all(c[d]["finite"] and c[d]["max_abs_err"] <= TOL[dt]
+             and max(c[d]["rel_err"].values()) <= BWD_TOL[dt]
+             for c in checks for d, dt in (("float32", torch.float32),
+                                           ("bfloat16", torch.bfloat16)))
+    emit("sp_attention_check", world=2, seq=2, shape=list(SP_SHAPE), window=64,
+         against="chunked_attention on the whole inputs", rank0=checks[0],
+         tol_abs={"float32": TOL[torch.float32], "bfloat16": TOL[torch.bfloat16]},
+         tol_rel={"float32": BWD_TOL[torch.float32], "bfloat16": BWD_TOL[torch.bfloat16]},
+         ok=ok)
+    if not ok:
+        raise AssertionError(f"sp_attention_check: {checks}")
+    counts["sp_step"] = check_model_axis("sp_step", [r["sp_step"] for r in ranks], "sp", card,
+                                         backend, dict(seq=2), batch=8, dropout=0.1)
+    counts["pp_step"] = check_model_axis("pp_step", [r["pp_step"] for r in ranks], "pp", card,
+                                         backend, dict(pipe=2, microbatches=2), batch=8,
+                                         dropout=0.1)
     counts["parallel_dryrun_world2"] = check_dryrun(ranks)
     return counts, ranks
 
@@ -3802,7 +4019,9 @@ def run_world4(seed, card) -> dict:
     from recformer_tpu_torch.config import RecformerConfig
     from recformer_tpu_torch.parallel.tensor import tp_config
 
+    t0 = time.perf_counter()
     ranks, _ = spawn_world(4, ["--rank-task", "world4", "--seed", str(seed)], timeout=600)
+    emit("world4", world=4, world_seconds=time.perf_counter() - t0, ok=True)
     per = [r["dp_tp_step_ln_kernels"] for r in ranks]
     cfg = tp_config(RecformerConfig.base(embed_ln_impl="pallas", ln_impl="pallas_bwd",
                                          remat=True, remat_policy="save_attention"))
@@ -3823,7 +4042,15 @@ def run_world4(seed, card) -> dict:
         raise AssertionError(f"dp_tp_step_ln_kernels: LayerNorm device kernels "
                              f"{[r['layernorm_device_kernels_per_step'] for r in per]} "
                              f"(expected {ln_expected})")
-    return {"dp_tp_step_ln_kernels": counts, "parallel_dryrun_world4": check_dryrun(ranks)}
+    return {"dp_tp_step_ln_kernels": counts,
+            "sp_step_dp": check_model_axis("sp_step_dp", [r["sp_step_dp"] for r in ranks], "sp",
+                                           card, per[0]["backend"], dict(data=2, seq=2),
+                                           batch_per_data_rank=8, dropout=0.1),
+            "pp_step_dp": check_model_axis("pp_step_dp", [r["pp_step_dp"] for r in ranks], "pp",
+                                           card, per[0]["backend"],
+                                           dict(data=2, pipe=2, microbatches=2),
+                                           batch_per_data_rank=8, dropout=0.1),
+            "parallel_dryrun_world4": check_dryrun(ranks)}
 
 
 def prepare_parallel_clis(seed, tmp) -> dict:
@@ -3832,7 +4059,10 @@ def prepare_parallel_clis(seed, tmp) -> dict:
     after another: ``cli.evaluate_seq --sharded_eval 2`` (float32) and
     ``cli.serve``, each against the same command on one rank here;
     ``cli.pretrain --zero`` on 2 data ranks with a SIGTERM on rank 1 alone
-    after step 5, then ``--resume``; ``cli.pretrain --tensor_parallel 2``."""
+    after step 2, then ``--resume``; ``cli.pretrain --tensor_parallel 2``,
+    ``--sequence_parallel 2 --attention_impl sequence_parallel`` and
+    ``--pipeline 2 --scan_layers --microbatches 2`` (1 epoch of 3 steps, a
+    SIGTERM on rank 1 alone after step 2, then ``--resume``)."""
     import dataclasses
 
     from recformer_tpu_torch.cli import encode_items, evaluate_seq, serve
@@ -3874,25 +4104,35 @@ def prepare_parallel_clis(seed, tmp) -> dict:
     base_args = ["--data_path", pre, "--model_size", "base", "--warmup_steps", "1",
                  "--seed", str(seed), "--device", "cuda", "--save_top_k", "1"]
     z_out, tp_out = os.path.join(tmp, "zero"), os.path.join(tmp, "tp")
-    z_args = base_args + ["--output_dir", z_out, "--num_train_epochs", "2", "--batch_size",
+    sp_out, pp_out = os.path.join(tmp, "sp"), os.path.join(tmp, "pp")
+    pp_args = base_args + ["--output_dir", pp_out, "--num_train_epochs", "1", "--batch_size",
+                           "8", "--gradient_accumulation_steps", "2", "--pipeline", "2",
+                           "--scan_layers", "--microbatches", "2"]
+    z_args = base_args + ["--output_dir", z_out, "--num_train_epochs", "1", "--batch_size",
                           "4", "--gradient_accumulation_steps", "2", "--zero"]
     plan = [
         dict(name="evaluate_seq", module="evaluate_seq", float32=True,
              args=common + ["--batch_size", "16", "--sharded_eval", "2"]),
         dict(name="serve", module="serve",
              args=serve_args + ["--output", os.path.join(tmp, "two.jsonl")]),
-        dict(name="zero", module="pretrain", args=z_args, preempt="1:5"),
+        dict(name="zero", module="pretrain", args=z_args, preempt="1:2"),
         dict(name="zero_resume", module="pretrain", args=z_args + ["--resume"]),
         dict(name="tp", module="pretrain", args=base_args + [
             "--output_dir", tp_out, "--num_train_epochs", "1", "--batch_size", "8",
             "--gradient_accumulation_steps", "2", "--tensor_parallel", "2"]),
+        dict(name="sp", module="pretrain", args=base_args + [
+            "--output_dir", sp_out, "--num_train_epochs", "1", "--batch_size", "8",
+            "--gradient_accumulation_steps", "2", "--sequence_parallel", "2",
+            "--attention_impl", "sequence_parallel"]),
+        dict(name="pp", module="pretrain", args=pp_args, preempt="1:2"),
+        dict(name="pp_resume", module="pretrain", args=pp_args + ["--resume"]),
     ]
     plan_path = os.path.join(tmp, "plan.json")
     with open(plan_path, "w") as f:
         json.dump(plan, f)
     torch.cuda.empty_cache()
     return dict(plan=plan, plan_path=plan_path, one_eval=one_eval, tmp=tmp, z_out=z_out,
-                tp_out=tp_out, cfg=cfg)
+                tp_out=tp_out, sp_out=sp_out, pp_out=pp_out, cfg=cfg)
 
 
 def check_parallel_clis(seed, ranks, ctx) -> dict:
@@ -3901,6 +4141,7 @@ def check_parallel_clis(seed, ranks, ctx) -> dict:
     one-rank ``cli.finetune`` for one epoch a stage. Returns their launches
     over the ranks."""
     from recformer_tpu_torch.cli import finetune
+    from recformer_tpu_torch.config import RecformerConfig
     from recformer_tpu_torch.models.heads import RecformerForPretraining
 
     plan, one_eval, tmp = ctx["plan"], ctx["one_eval"], ctx["tmp"]
@@ -3930,42 +4171,77 @@ def check_parallel_clis(seed, ranks, ctx) -> dict:
 
     first = [r["zero"]["result"] for r in ranks]
     second = [r["zero_resume"]["result"] for r in ranks]
-    ok = ([r["steps"] for r in first] == [5, 5]
+    ok = ([r["steps"] for r in first] == [2, 2]
           and all(r["preempted"] == signal.SIGTERM for r in first)
-          and [r["steps"] for r in second] == [8, 8]
+          and [r["steps"] for r in second] == [5, 5]
           and all("preempted" not in r for r in second)
           and {"state.pt", "last.pt", "config.json"} <= set(os.listdir(z_out)))
     emit("parallel_cli_pretrain_zero_preemption", world=2, zero=True,
-         sigterm="rank 1 only, after step 5", stopped_at_per_rank=[r["steps"] for r in first],
+         sigterm="rank 1 only, after step 2", stopped_at_per_rank=[r["steps"] for r in first],
          resumed=second, peak_memory_gib_per_rank=[r["zero"]["peak_memory_gib"]
                                                    for r in ranks], ok=ok)
     if not ok:
         raise AssertionError(f"parallel_cli_pretrain_zero_preemption: {first}, {second}")
 
-    tp_res = ranks[0]["tp"]["result"]
-    whole = RecformerForPretraining(cfg)
-    whole.load_state_dict(torch.load(os.path.join(tp_out, "best.pt"), weights_only=True),
-                          strict=True)
-    del whole
     ft = os.path.join(tmp, "finetune")
     os.makedirs(ft)
-    write_corpus(ft, n_items=128, n_users=32, seed=seed + 1, hist=(16, 51))
-    with _MergeRecord() as loads:
-        metrics = finetune.main(["--data_path", ft, "--output_dir", os.path.join(ft, "out"),
-                                 "--model_size", "base", "--device", "cuda",
-                                 "--num_train_epochs", "1", "--verbose", "1",
-                                 "--batch_size", "16", "--seed", str(seed),
-                                 "--pretrain_ckpt", os.path.join(tp_out, "best.pt")])
-    copied = len(loads[0][0]) if loads else 0
-    ok = (tp_res["steps"] == 3 and copied == len(loads[0][2])
-          and all(math.isfinite(v) for v in metrics.values()))
+    write_corpus(ft, n_items=64, n_users=16, seed=seed + 1, hist=(16, 51))
+
+    def into_one_rank_finetune(out_dir, name):
+        """``out_dir``'s ``best.pt``, whole, into a one-rank ``cli.finetune``
+        for one epoch a stage: the tensors copied and the test metrics."""
+        whole = RecformerForPretraining(cfg)
+        whole.load_state_dict(torch.load(os.path.join(out_dir, "best.pt"), weights_only=True),
+                              strict=True)
+        del whole
+        with _MergeRecord() as loads:
+            metrics = finetune.main(["--data_path", ft, "--output_dir",
+                                     os.path.join(ft, name), "--model_size", "base",
+                                     "--device", "cuda", "--num_train_epochs", "1",
+                                     "--verbose", "1", "--batch_size", "16", "--seed", str(seed),
+                                     "--pretrain_ckpt", os.path.join(out_dir, "best.pt")])
+        copied = len(loads[0][0]) if loads else 0
+        ok = copied == len(loads[0][2]) and all(math.isfinite(v) for v in metrics.values())
+        return ok, {"copied": copied, "test_metrics": metrics}
+
+    tp_res = ranks[0]["tp"]["result"]
+    loaded_ok, loaded = into_one_rank_finetune(tp_out, "out")
+    ok = tp_res["steps"] == 3 and loaded_ok
     emit("parallel_cli_pretrain_tp", world=2, tensor_parallel=2, result=tp_res,
          peak_memory_gib_per_rank=[r["tp"]["peak_memory_gib"] for r in ranks],
-         best_pt_whole=True, into_one_rank_finetune={"copied": copied,
-                                                     "test_metrics": metrics}, ok=ok)
+         best_pt_whole=True, into_one_rank_finetune=loaded, ok=ok)
     if not ok:
-        raise AssertionError(f"parallel_cli_pretrain_tp: {tp_res}, copied {copied}, "
-                             f"{metrics}")
+        raise AssertionError(f"parallel_cli_pretrain_tp: {tp_res}, {loaded}")
+
+    sp_res = [r["sp"]["result"] for r in ranks]
+    saved = RecformerConfig.load(os.path.join(ctx["sp_out"], "config.json"))
+    loaded_ok, loaded = into_one_rank_finetune(ctx["sp_out"], "out_sp")
+    ok = ([r["steps"] for r in sp_res] == [3, 3] and loaded_ok
+          and (saved.attention_impl, saved.global_kv_mode) == ("sequence_parallel", "full"))
+    emit("parallel_cli_pretrain_sp", world=2, sequence_parallel=2, result=sp_res[0],
+         seconds_per_rank=[r["sp"]["seconds"] for r in ranks],
+         peak_memory_gib_per_rank=[r["sp"]["peak_memory_gib"] for r in ranks],
+         launches_per_rank=[{k: v for k, v in r["sp"]["counts"].items() if v} for r in ranks],
+         best_pt_whole=True, into_one_rank_finetune=loaded, ok=ok)
+    if not ok:
+        raise AssertionError(f"parallel_cli_pretrain_sp: {sp_res}, {loaded}")
+
+    first = [r["pp"]["result"] for r in ranks]
+    second = [r["pp_resume"]["result"] for r in ranks]
+    loaded_ok, loaded = into_one_rank_finetune(ctx["pp_out"], "out_pp")
+    ok = ([r["steps"] for r in first] == [2, 2]
+          and all(r["preempted"] == signal.SIGTERM for r in first)
+          and [r["steps"] for r in second] == [5, 5]
+          and all("preempted" not in r for r in second) and loaded_ok)
+    emit("parallel_cli_pretrain_pp", world=2, pipeline=2, microbatches=2,
+         seconds_per_rank=[r["pp"]["seconds"] + r["pp_resume"]["seconds"] for r in ranks],
+         sigterm="rank 1 only, after step 2", stopped_at_per_rank=[r["steps"] for r in first],
+         resumed=second[0], peak_memory_gib_per_rank=[r["pp"]["peak_memory_gib"]
+                                                      for r in ranks],
+         launches_per_rank=[{k: v for k, v in r["pp"]["counts"].items() if v} for r in ranks],
+         best_pt_whole=True, into_one_rank_finetune=loaded, ok=ok)
+    if not ok:
+        raise AssertionError(f"parallel_cli_pretrain_pp: {first}, {second}, {loaded}")
     return {"parallel_clis": counts}
 
 
@@ -3973,8 +4249,9 @@ def check_dryrun(ranks) -> dict:
     """parallel_dryrun: every step of the dry run ran, its losses finite and
     equal on every rank; returns the launches over the ranks."""
     per = [r["parallel_dryrun"] for r in ranks]
-    names = ["pretrain", "finetune_sampled", "finetune_full", "zero", "local"] + (
-        ["tensor_parallel"] if len(ranks) >= 4 else [])
+    names = ["pretrain", "finetune_sampled", "finetune_full", "zero", "local",
+             "sequence_parallel_forward", "pipeline_forward"] + (
+        ["tensor_parallel", "sequence_parallel", "pipeline_parallel"] if len(ranks) >= 4 else [])
     losses = per[0]["losses"]
     ok = (sorted(losses) == sorted(names) and all(math.isfinite(v) for v in losses.values())
           and all(r["losses"] == losses for r in per))
@@ -3999,7 +4276,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", choices=["parallel"], default=None,
-                    help="build, then run only the parallel phases (30-33); no result line")
+                    help="build, then run only the parallel phases (30-36); no result line")
     # rank mode: this script as one rank of a world that it started itself
     ap.add_argument("--rank-task", choices=["world2", "world4"], help=argparse.SUPPRESS)
     ap.add_argument("--rank-out", help=argparse.SUPPRESS)

@@ -1,5 +1,6 @@
 """Pretraining entry point: MLM + in-batch item-item contrastive retrieval, on one
-device or data- and tensor-parallel over ``torch.distributed``.
+device or data-, tensor-, pipeline- or sequence-parallel over
+``torch.distributed``.
 
 Counterpart of ``recformer_tpu/cli/pretrain.py``, with its flags plus
 ``--device`` (default ``cuda``; without a GPU the command raises unless
@@ -21,19 +22,25 @@ The world is a ``data`` x ``model`` mesh (``parallel/mesh.py``: ``nccl`` when
 every rank has a card of its own, ``gloo`` when ranks share one or run on the
 CPU). With no model-parallel flag every rank is a data rank;
 ``--tensor_parallel M`` puts M ranks on the model axis (Megatron-style
-heads and FFN columns, ``parallel/tensor.py``) and data-parallelism on the
+heads and FFN columns, ``parallel/tensor.py``), ``--pipeline M`` on a
+``pipe`` axis (the encoder's layers in M GPipe stages over
+``--microbatches``, ``parallel/pipeline.py``; needs ``--scan_layers``) and
+``--sequence_parallel M`` on a ``seq`` axis (the history view's tokens in M
+slices, with ``--attention_impl sequence_parallel`` and the full-length
+global projections, ``parallel/sequence.py``), data parallelism on the
 rest; ``--zero`` shards the AdamW moments over the data ranks (plain data
 parallelism only). The flags are validated as the JAX CLI's
-``_resolve_parallelism`` does, with the same refusals; ``--pipeline`` and
-``--sequence_parallel`` (with ``--microbatches`` and ``--attention_impl
-sequence_parallel``) are validated too, then refused: they come with the next
-port slice. ``--batch_size`` is per data rank: every rank walks the same
+``_resolve_parallelism`` does, with the same refusals. Under sequence
+parallelism validation runs unsharded with the chunked attention on the
+same parameters, under pipeline parallelism the whole model unpipelined,
+as in the JAX CLI. ``--batch_size`` is per data rank: every rank walks the same
 global batches of ``batch_size x n_data`` rows and keeps its data rank's
 (``training/steps.py``), in training and in validation, whose contrastive
 accuracy is over the gathered global batch. Rank 0 alone writes logs, the
 mirror and the checkpoints, which hold whole tensors (gathered under tensor
-parallelism), so a one-rank run reads them; ``--resume`` loads the whole
-train state and shards it again. A SIGTERM/SIGINT latched on any rank is
+parallelism; every pipeline stage and seq rank holds the whole model), so a
+one-rank run reads them; ``--resume`` loads the whole train state and
+shards it again. A SIGTERM/SIGINT latched on any rank is
 reduced over the world (a ``gloo`` group of CPU tensors) at the step
 boundary, so every rank stops at the same step.
 
@@ -83,7 +90,9 @@ from ..training.checkpoint import (
     write_train_state,
 )
 from ..parallel.collectives import pmax
-from ..parallel.mesh import destroy, make_mesh, world_size
+from ..parallel.mesh import MODEL_AXIS, PIPE_AXIS, SEQ_AXIS, destroy, make_mesh, world_size
+from ..parallel.pipeline import make_pipeline_pretrain_step
+from ..parallel.sequence import make_sp_pretrain_step, with_attention_impl
 from ..parallel.tensor import (deterministic_replicas, gather_state_dict_tp, shard_model_tp,
                                shard_state_dict_tp, tp_config, validate_tp_config)
 from ..training.optimizer import create_optimizer
@@ -131,13 +140,13 @@ def parse_args(argv=None):
                    help="shard attention heads + FFN over a 'model' axis of this many ranks "
                         "(Megatron-style column/row parallel; data parallelism on the rest)")
     p.add_argument("--pipeline", type=int, default=1,
-                   help="split the encoder stack over this many ranks (needs --scan_layers; "
-                        "validated, then refused: not ported yet)")
+                   help="split the encoder stack over this many ranks, GPipe (needs "
+                        "--scan_layers)")
     p.add_argument("--microbatches", type=int, default=2,
                    help="pipeline microbatches per step (with --pipeline)")
     p.add_argument("--sequence_parallel", type=int, default=1,
                    help="shard the token dim over this many ranks (with --attention_impl "
-                        "sequence_parallel; validated, then refused: not ported yet)")
+                        "sequence_parallel)")
     p.add_argument("--zero", action="store_true",
                    help="ZeRO-1 optimizer-state sharding over the data ranks")
     p.add_argument("--hidden_act", choices=["gelu", "gelu_tanh", "relu"], default=None,
@@ -145,7 +154,7 @@ def parse_args(argv=None):
                         "for imported checkpoints; base() defaults to gelu_tanh")
     p.add_argument("--scan_layers", action="store_true", default=None,
                    help="recorded in the config (the JAX package's stacked layers); the "
-                        "port runs the same layer loop either way")
+                        "port runs the same layer loop either way; --pipeline needs it")
     p.add_argument("--scan_unroll", type=int, default=None,
                    help="recorded in the config; no effect on the port's layer loop")
     p.add_argument("--remat", action="store_true", default=None,
@@ -185,10 +194,9 @@ def parse_args(argv=None):
 
 
 def _resolve_parallelism(args, config, n_dev: int):
-    """One-flag strategy selection, the JAX CLI's: returns (config,
-    model-axis size, mode) with mode in {'dp', 'tp'} over a world of
-    ``n_dev`` ranks; the same combinations exit, and 'pp' / 'sp' exit after
-    validation."""
+    """One-flag strategy selection, the JAX CLI's: returns (config, size of
+    the mesh's second axis, mode) with mode in {'dp', 'tp', 'pp', 'sp'} over
+    a world of ``n_dev`` ranks; the same combinations exit."""
     modes = {"tp": args.tensor_parallel, "pp": args.pipeline, "sp": args.sequence_parallel}
     active = [m for m, v in modes.items() if v > 1]
     if len(active) > 1:
@@ -213,9 +221,14 @@ def _resolve_parallelism(args, config, n_dev: int):
     if mode == "pp" and not config.scan_layers:
         raise SystemExit("--pipeline requires --scan_layers (stacked layer "
                          "params with a leading layer axis)")
-    flag = "--pipeline" if mode == "pp" else "--sequence_parallel"
-    raise SystemExit(f"{flag} {n_model}: not ported yet; pipeline and sequence parallelism "
-                     "come with the next port slice")
+    global_batch = args.batch_size * (n_dev // n_model)
+    if mode == "pp" and global_batch % args.microbatches:
+        raise SystemExit(f"global batch {global_batch} must be divisible by "
+                         f"--microbatches {args.microbatches}")
+    if mode == "sp":
+        # SP shards the full-length k_g/v_g tensors (see parallel/sequence.py)
+        config = config.replace(global_kv_mode="full")
+    return config, n_model, mode
 
 
 def _install_preemption_handler() -> dict:
@@ -275,19 +288,20 @@ def main(argv=None):
     config, n_model, mode = _resolve_parallelism(args, config, n_world)
     if mode == "tp":  # before any CUDA work (see deterministic_replicas)
         deterministic_replicas()
-    mesh = make_mesh(n_model, args.device) if n_world > 1 else None
+    axis = {"pp": PIPE_AXIS, "sp": SEQ_AXIS}.get(mode, MODEL_AXIS)
+    mesh = make_mesh(n_model, args.device, axis=axis) if n_world > 1 else None
     try:
-        return _train(args, config, mesh)
+        return _train(args, config, mesh, mode)
     finally:
         if mesh is not None:
             destroy(mesh)
 
 
-def _train(args, config, mesh):
+def _train(args, config, mesh, mode="dp"):
     device = mesh.device if mesh is not None else resolve_device(args.device)
     main_rank = mesh is None or mesh.rank == 0
     n_data = mesh.n_data if mesh is not None else 1
-    tp = mesh is not None and mesh.n_model > 1
+    tp = mode == "tp"
     say = print if main_rank else (lambda *a, **k: None)
     tokenizer = make_tokenizer(config, args.hf_tokenizer)
 
@@ -339,8 +353,17 @@ def _train(args, config, mesh):
         warmup_steps=args.warmup_steps, total_steps=total,
         grad_accum_steps=args.gradient_accumulation_steps, mesh=mesh,
         zero=args.zero and mesh is not None)
-    step = make_pretrain_step(config, model, optimizer, mesh)
-    eval_step = make_pretrain_eval_step(config, model, mesh)
+    eval_model = model
+    if mode == "pp":
+        step = make_pipeline_pretrain_step(config, model, optimizer, mesh, args.microbatches)
+    elif mode == "sp":
+        step = make_sp_pretrain_step(config, model, optimizer, mesh)
+        # the SP op runs on a rank's slice only: validation takes the chunked
+        # attention on the same parameters, unsharded
+        eval_model = with_attention_impl(model, "chunked")
+    else:
+        step = make_pretrain_step(config, model, optimizer, mesh)
+    eval_step = make_pretrain_eval_step(eval_model.config, eval_model, mesh)
 
     def whole_params():
         """The whole parameters (gathered over the model ranks: every rank

@@ -17,7 +17,8 @@ backward; the LM head keeps flax's under every value. ``attention_impl``
 keeps its values:
 ``'pallas'`` selects the hand-written windowed-attention kernel (its plain
 version on the CPU), ``'dense'`` and ``'chunked'`` the plain twins, and
-``'sequence_parallel'`` is refused: sequence parallelism is not ported yet.
+``'sequence_parallel'`` the sequence-parallel op (``parallel/sequence.py``),
+which runs inside that module's entry points.
 ``attention_head_shard_axis`` marks a tensor-parallel model, whose heads
 ``parallel/tensor.py`` shards over the ``model`` process group.
 """

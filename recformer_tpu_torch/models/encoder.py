@@ -16,8 +16,13 @@ with the hand-written backward kernel (``ops/layernorm.py``) and
 ``'split_bwd'`` the same forward with its plain split backward; the
 parameters are the same under all three. ``attention_impl`` selects the attention core:
 ``'pallas'`` the fused kernel (``ops/window_attention.py``), ``'dense'`` and
-``'chunked'`` the plain twins. ``scan_layers`` does not change the forward
-math, so the encoder runs the same layer loop under either value.
+``'chunked'`` the plain twins, ``'sequence_parallel'`` the op of
+``parallel/sequence.py`` on this rank's slice of the tokens (the mesh
+carried on the module as ``sp``; the global keys and values are projected
+over the slice, never reassociated, as the op shards them).
+``scan_layers`` does not change the forward math, so the encoder runs the
+same layer loop under either value (``parallel/pipeline.py`` runs a
+stage's slice of it).
 
 Activation recomputation (``remat``, the counterpart of the JAX package's
 ``nn.remat`` around each layer with ``_remat_policy``): when grad is enabled
@@ -76,6 +81,7 @@ from ..ops.attention import (_batch_index, chunked_attention, dense_attention,
 from ..ops.layernorm import fused_bwd_layernorm, split_layernorm
 from ..ops.window_attention import window_attention
 from ..parallel.collectives import copy_to, psum
+from ..parallel.sequence import sequence_parallel_attention
 from ..utils.rng import capture, dropout, head_group_rng, replay
 
 # The data contract has exactly one global token per sequence (the <s> row).
@@ -183,6 +189,7 @@ class LongformerSelfAttention(nn.Module):
         self.config = config
         self.window = window
         self.tp = None  # the mesh, under tensor parallelism
+        self.sp = None  # the mesh, under sequence parallelism
         hs = config.hidden_size
         for name in ("query", "key", "value", "query_global", "key_global", "value_global"):
             setattr(self, name, _linear(config, hs, hs))
@@ -193,10 +200,10 @@ class LongformerSelfAttention(nn.Module):
         B, L, _ = hidden.shape
         H, D = cfg.num_attention_heads, cfg.head_dim
         dt = cfg.compute_dtype
-        if cfg.attention_impl == "sequence_parallel":
-            raise NotImplementedError(
-                "attention_impl='sequence_parallel' is not ported yet: it comes with the next "
-                "port slice (sequence and pipeline parallelism)")
+        sequence_parallel = cfg.attention_impl == "sequence_parallel"
+        if sequence_parallel and self.sp is None:
+            raise ValueError("attention_impl='sequence_parallel' runs on a rank's slice of the "
+                             "tokens: build it with parallel.sequence's make_* functions")
         if self.tp is not None:
             hidden = copy_to(hidden, self.tp.model_group)
             H //= self.tp.n_model
@@ -217,7 +224,7 @@ class LongformerSelfAttention(nn.Module):
         rate = cfg.attention_probs_dropout_prob if rng is not None else 0.0
         gen = rng.device if rng is not None else None
         g_out = k_g = v_g = None
-        if cfg.global_kv_mode == "thin":
+        if cfg.global_kv_mode == "thin" and not sequence_parallel:
             # x @ (W_kg^T q_g) instead of (x @ W_kg) q_g: the full-length
             # global key/value projections are never materialised
             g_out = global_rows_thin(
@@ -231,6 +238,9 @@ class LongformerSelfAttention(nn.Module):
         if cfg.attention_impl == "dense":
             out = dense_attention(q, k, v, q_g, k_g, v_g, mask, self.window, rate, gen,
                                   g_out=g_out)
+        elif sequence_parallel:
+            out = sequence_parallel_attention(q, k, v, q_g, k_g, v_g, mask, self.window,
+                                              self.sp.model_group, _MAX_GLOBALS, rate, gen)
         elif cfg.attention_impl == "chunked":
             out = chunked_attention(q, k, v, q_g, k_g, v_g, mask, self.window,
                                     block=min(128, L), dropout_rate=rate, generator=gen,

@@ -19,6 +19,20 @@ on CUDA tensors too, which lets several ranks share one card over gloo
   forward at a column-parallel input whose backward all-reduces.
 - :func:`pmax` takes no gradient: the input is detached *before* the
   collective, as ``catalog.py``'s stability max needs.
+- :func:`ppermute` sends ``x`` along ``(source, destination)`` pairs of
+  group ranks; a rank that no pair names as a destination receives zeros,
+  as in JAX. Its backward sends the cotangents along the reversed pairs.
+  On ``nccl`` each rank posts its send and its receive together
+  (``batch_isend_irecv``); ``gloo`` sends and receives CPU tensors only, so
+  a CUDA tensor is copied to host memory, sent, received there and copied
+  back (:func:`p2p_transport` names the transport). :func:`isend` and
+  :func:`recv` are the one-way halves, for a schedule that posts them
+  itself (the pipeline's stage hand-off).
+- :func:`shard` is this rank's slice of a replicated tensor along a dim
+  (its backward gathers every rank's slice of the cotangent), the input
+  side of JAX's ``shard_map`` over a sharded dim; :func:`all_gather_local`
+  along that dim is the output side, for a consumer that every rank
+  computes alike.
 """
 
 from __future__ import annotations
@@ -68,12 +82,34 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return _AllGather.apply(x, group, dim)
 
 
-def all_gather_local(x: torch.Tensor, group) -> torch.Tensor:
-    """:func:`all_gather` along dim 0 whose remote rows carry no gradient:
+def all_gather_local(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """:func:`all_gather` along ``dim`` whose remote rows carry no gradient:
     only this rank's rows, put back in their place, are differentiable."""
     parts = gather_list(x, group)
     parts[group_rank(group)] = x
-    return torch.cat(parts, dim=0)
+    return torch.cat(parts, dim=dim)
+
+
+class _Shard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n = group_size(group)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of size {x.shape[dim]} not divisible by {n} ranks")
+        size = x.shape[dim] // n
+        return x.narrow(dim, group_rank(group) * size, size).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(gather_list(g, ctx.group), dim=ctx.dim), None, None
+
+
+def shard(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's contiguous slice of ``x`` (the same on every rank) along
+    ``dim``; the backward gathers every rank's cotangent slice, so each rank
+    gets the whole gradient."""
+    return _Shard.apply(x, group, dim)
 
 
 class _Psum(torch.autograd.Function):
@@ -122,6 +158,96 @@ def pmax(x: torch.Tensor, group) -> torch.Tensor:
     y = x.detach().clone()
     dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
     return y
+
+
+def p2p_transport(group, device: torch.device) -> str:
+    """How :func:`ppermute`, :func:`isend` and :func:`recv` move tensors of
+    ``device`` over ``group``'s backend."""
+    backend = dist.get_backend(group)
+    if backend == "nccl":
+        return "nccl batch_isend_irecv"
+    if device.type == "cuda":
+        return f"{backend} send/recv staged through host memory"
+    return f"{backend} send/recv"
+
+
+def _staged(group, x: torch.Tensor) -> bool:
+    """Whether ``x`` goes through host memory: gloo sends CPU tensors only."""
+    return x.is_cuda and dist.get_backend(group) != "nccl"
+
+
+class Sent:
+    """An :func:`isend` in flight; :meth:`wait` before the tensor is reused."""
+
+    def __init__(self, work, buffer):
+        self.work, self.buffer = work, buffer
+
+    def wait(self) -> None:
+        self.work.wait()
+        self.buffer = None
+
+
+def isend(x: torch.Tensor, dst: int, group) -> Sent:
+    """Start sending ``x`` to group rank ``dst``."""
+    buf = x.detach().contiguous()
+    if _staged(group, buf):
+        buf = buf.cpu()
+    return Sent(dist.isend(buf, dist.get_global_rank(group, dst), group=group), buf)
+
+
+def recv(like: torch.Tensor, src: int, group) -> torch.Tensor:
+    """A tensor of ``like``'s shape, dtype and device, received from group
+    rank ``src``."""
+    buf = torch.empty(like.shape, dtype=like.dtype,
+                      device="cpu" if _staged(group, like) else like.device)
+    dist.recv(buf, dist.get_global_rank(group, src), group=group)
+    return buf.to(like.device)
+
+
+def _permute(x: torch.Tensor, pairs, group) -> torch.Tensor:
+    r = group_rank(group)
+    dst = [d for s, d in pairs if s == r]
+    src = [s for s, d in pairs if d == r]
+    if len(dst) > 1 or len(src) > 1:
+        raise ValueError(f"ppermute pairs {pairs} send or receive twice at rank {r}")
+    x = x.detach().contiguous()
+    out = torch.zeros_like(x)
+    staged = _staged(group, x)
+    send_buf = x.cpu() if staged and dst else x
+    recv_buf = torch.empty_like(send_buf, device="cpu") if staged else out
+    ops = []
+    if dst:
+        ops.append(dist.P2POp(dist.isend, send_buf, dist.get_global_rank(group, dst[0]), group))
+    if src:
+        ops.append(dist.P2POp(dist.irecv, recv_buf, dist.get_global_rank(group, src[0]), group))
+    if dist.get_backend(group) == "nccl":
+        works = dist.batch_isend_irecv(ops) if ops else []
+    else:
+        works = [op.op(op.tensor, op.peer, group=group) for op in ops]
+    for w in works:
+        w.wait()
+    if src and staged:
+        out.copy_(recv_buf)
+    return out
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pairs, group):
+        ctx.pairs, ctx.group = pairs, group
+        return _permute(x, pairs, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(g, [(d, s) for s, d in ctx.pairs], ctx.group), None, None
+
+
+def ppermute(x: torch.Tensor, pairs, group) -> torch.Tensor:
+    """JAX's ``lax.ppermute``: group rank ``s`` sends ``x`` to ``d`` for each
+    ``(s, d)`` in ``pairs``; a rank that receives nothing gets zeros. Every
+    rank of the group calls it with the same pairs. Differentiable: the
+    backward permutes the cotangents back."""
+    return _Ppermute.apply(x, [tuple(p) for p in pairs], group)
 
 
 def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:

@@ -12,9 +12,14 @@ even, else 1) it runs one step each of
   mesh of the whole world;
 - the tensor-parallel step, when the model size is 2;
 - the ``'local'`` contrastive-gradient step;
+- the sequence-parallel backbone forward with the whole world on the
+  ``seq`` axis, and the sequence-parallel step on data x seq (seq 2), when
+  the world is at least 4;
+- the pipeline-parallel backbone forward (pipe 2, 2 microbatches, data
+  parallelism on the rest), and the pipeline-parallel step on data x pipe,
+  when the world is at least 4;
 
-and prints one line for each, from rank 0. Sequence and pipeline
-parallelism are not ported yet. Under ``main`` every step runs with
+and prints one line for each, from rank 0. Under ``main`` every step runs with
 PyTorch's deterministic algorithms (``tensor.deterministic_replicas``);
 a caller of :func:`dryrun` that runs the tensor-parallel step on the card
 turns them on first.
@@ -32,13 +37,16 @@ import numpy as np
 import torch
 
 from ..config import RecformerConfig
+from ..data.device_pipeline import assemble_for_config
 from ..models.heads import RecformerForPretraining, RecformerForSeqRec
-from ..models.recformer import init_weights
+from ..models.recformer import RecformerModel, init_weights
 from ..training.optimizer import create_optimizer
 from ..training.steps import make_finetune_step, make_pretrain_step
 from ..utils.rng import StepRNG
 from .catalog import shard_rows
-from .mesh import destroy, make_mesh
+from .mesh import PIPE_AXIS, SEQ_AXIS, destroy, make_mesh
+from .pipeline import make_pipeline_forward, make_pipeline_pretrain_step
+from .sequence import make_sequence_parallel_forward, make_sp_pretrain_step
 from .tensor import deterministic_replicas, shard_model_tp, tp_config
 
 
@@ -120,6 +128,46 @@ def dryrun(device="cuda", n_model=None) -> dict:
     if n_model > 1:
         pretrain("tensor_parallel", tp_config(cfg), mesh, tp=True)
     pretrain("local", cfg.replace(contrastive_gradient="local"), mesh)
+
+    # sequence parallelism: the whole world on the seq axis, then data x seq
+    sp_cfg = cfg.replace(attention_impl="sequence_parallel", global_kv_mode="full")
+    seq_mesh = make_mesh(world, device, axis=SEQ_AXIS)
+    batch = assemble_for_config(table, item_ids, seq_lens, sp_cfg)
+    batch = {k: batch[k] for k in ("input_ids", "attention_mask", "global_attention_mask",
+                                   "token_type_ids", "item_position_ids")}
+    with torch.no_grad():
+        _, pooled = make_sequence_parallel_forward(_model(RecformerModel, sp_cfg, dev, seed=6),
+                                                   seq_mesh)(batch)
+    out["sequence_parallel_forward"] = float(pooled.float().norm())
+    say(f"[dryrun] sequence_parallel_forward (seq {world}) ok: pooled {tuple(pooled.shape)}")
+    if world >= 4 and world % 2 == 0:
+        step_mesh = make_mesh(2, device, axis=SEQ_AXIS)
+        model = _model(RecformerForPretraining, sp_cfg, dev, seed=9)
+        opt = create_optimizer(model, learning_rate=1e-4, warmup_steps=2, total_steps=10,
+                               mesh=step_mesh)
+        metrics = make_sp_pretrain_step(sp_cfg, model, opt, step_mesh)(
+            StepRNG(10, dev), table, item_ids, seq_lens)
+        out["sequence_parallel"] = float(metrics["loss"])
+        say(f"[dryrun] sequence_parallel (data {step_mesh.n_data} x seq 2) ok: "
+            f"loss={out['sequence_parallel']:.4f}")
+
+    # pipeline parallelism: pipe 2 and 2 microbatches, data on the rest
+    pp_cfg = cfg.replace(scan_layers=True)
+    pipe_mesh = make_mesh(2, device, axis=PIPE_AXIS)
+    with torch.no_grad():
+        _, pooled = make_pipeline_forward(_model(RecformerModel, pp_cfg, dev, seed=8),
+                                          pipe_mesh, num_microbatches=2)(batch)
+    out["pipeline_forward"] = float(pooled.float().norm())
+    say(f"[dryrun] pipeline_forward (pipe 2, 2 microbatches) ok: pooled {tuple(pooled.shape)}")
+    if world >= 4:
+        model = _model(RecformerForPretraining, pp_cfg, dev, seed=11)
+        opt = create_optimizer(model, learning_rate=1e-4, warmup_steps=2, total_steps=10,
+                               mesh=pipe_mesh)
+        metrics = make_pipeline_pretrain_step(pp_cfg, model, opt, pipe_mesh, 2)(
+            StepRNG(12, dev), table, item_ids, seq_lens)
+        out["pipeline_parallel"] = float(metrics["loss"])
+        say(f"[dryrun] pipeline_parallel (data {pipe_mesh.n_data} x pipe 2) ok: "
+            f"loss={out['pipeline_parallel']:.4f}")
     if not all(math.isfinite(v) for v in out.values()):
         raise RuntimeError(f"[dryrun] a loss is not finite: {out}")
     return out

@@ -1,4 +1,4 @@
-"""Process groups for data and tensor parallelism.
+"""Process groups for data, tensor, pipeline and sequence parallelism.
 
 Counterpart of ``recformer_tpu/parallel/mesh.py``. JAX lays its devices out
 as a ``('data', 'model')`` mesh in one process; here every rank is its own
@@ -8,16 +8,20 @@ mesh is a pair of process groups per rank:
 - rank ``r`` sits at ``(data_rank, model_rank) = divmod(r, n_model)``, the
   row-major order of JAX's ``reshape(n_data, n_model)``;
 - ``model_group`` holds the ``n_model`` ranks of one data rank (tensor
-  parallelism, the row-sharded catalog), ``data_group`` the ``n_data`` ranks
-  of one model rank (batch sharding, gradient reduction, ZeRO).
+  parallelism, the row-sharded catalog; the ``pipe`` stages or the ``seq``
+  shards, as JAX names that second axis, which the mesh's ``axis`` says),
+  ``data_group`` the ``n_data`` ranks of one model rank (batch sharding,
+  gradient reduction, ZeRO).
 
 :func:`init_distributed` reads torchrun's environment (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``) and gives each rank
 its device: ``cuda:(LOCAL_RANK % device_count)``, or the CPU when asked.
 The backend is ``nccl`` when every rank of the host has a card of its own,
 and ``gloo`` when ranks share a card (NCCL refuses two ranks on one device)
-or run on the CPU; gloo then stages CUDA tensors through host memory. The
-choice is printed and kept on the mesh. An ``nccl`` failure raises: nothing
+or run on the CPU; gloo then stages CUDA tensors through host memory (its
+point-to-point sends take CPU tensors only, so ``collectives.ppermute``
+copies them there itself). The choice and the point-to-point transport are
+printed and kept on the mesh. An ``nccl`` failure raises: nothing
 retries on ``gloo``. Every group has a timeout, so a rank that dies ends
 its peers' collectives with an error instead of a hang.
 """
@@ -37,6 +41,8 @@ from ..utils.device import resolve_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+PIPE_AXIS = "pipe"
+SEQ_AXIS = "seq"
 
 # optimizer-state placement (``shard_optimizer_state`` in the JAX package): a
 # leaf is sharded over 'data' when its leading dim divides by the data size
@@ -71,6 +77,7 @@ class Mesh:
     model_group: Optional[dist.ProcessGroup]
     host_group: Optional[dist.ProcessGroup] = None  # gloo over the world, for CPU tensors
     owns_world: bool = False  # whether making it set up the default process group
+    axis: str = MODEL_AXIS  # the second axis's name: 'model', 'pipe' or 'seq'
 
     @property
     def world_size(self) -> int:
@@ -85,8 +92,14 @@ class Mesh:
         return self.rank % self.n_model
 
     def describe(self) -> dict:
-        return dict(backend=self.backend, world=self.world_size, data=self.n_data,
-                    model=self.n_model, rank=self.rank, device=str(self.device))
+        from .collectives import p2p_transport
+
+        out = dict(backend=self.backend, world=self.world_size, data=self.n_data)
+        out[self.axis] = self.n_model
+        out.update(rank=self.rank, device=str(self.device))
+        if self.axis in (PIPE_AXIS, SEQ_AXIS):
+            out["p2p"] = p2p_transport(self.model_group, self.device)
+        return out
 
 
 def init_distributed(device="cuda", timeout_s: float = DEFAULT_TIMEOUT_S) -> torch.device:
@@ -105,10 +118,12 @@ def init_distributed(device="cuda", timeout_s: float = DEFAULT_TIMEOUT_S) -> tor
     return dev
 
 
-def make_mesh(n_model: int = 1, device="cuda", timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
+def make_mesh(n_model: int = 1, device="cuda", timeout_s: float = DEFAULT_TIMEOUT_S,
+              axis: str = MODEL_AXIS) -> Mesh:
     """The mesh of the current torchrun world: ``n_model`` ranks per model
-    group, the rest on ``data``. Every rank must call it (groups are made
-    collectively, in the same order)."""
+    group (the ``axis`` axis: ``model``, ``pipe`` or ``seq``), the rest on
+    ``data``. Every rank must call it (groups are made collectively, in the
+    same order)."""
     owns_world = not dist.is_initialized()
     dev = init_distributed(device, timeout_s)
     world, rank = dist.get_world_size(), dist.get_rank()
@@ -129,7 +144,7 @@ def make_mesh(n_model: int = 1, device="cuda", timeout_s: float = DEFAULT_TIMEOU
     # gloo, which never waits on the card's stream
     host_group = dist.new_group(backend="gloo", timeout=timeout)
     mesh = Mesh(n_data, n_model, rank, dev, dist.get_backend(), data_group, model_group,
-                host_group, owns_world)
+                host_group, owns_world, axis)
     if rank == 0:
         print(f"[mesh] {mesh.describe()}", flush=True)
     return mesh

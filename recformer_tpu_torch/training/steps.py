@@ -30,7 +30,10 @@ handed the same global batch of item ids:
 
 Under tensor parallelism the model's sharded modules run their own
 collectives over the ``model_group``; the finetune step scores against a
-catalog row-sharded over it (``parallel/catalog.py``).
+catalog row-sharded over it (``parallel/catalog.py``). The sequence- and
+pipeline-parallel steps (``parallel/sequence.py``, ``parallel/pipeline.py``)
+compute the loss alike on every rank of the mesh's second axis and reduce
+their gradients with :func:`model_axis_backward`.
 """
 
 from __future__ import annotations
@@ -125,6 +128,38 @@ def pretrain_backward(config: RecformerConfig, model, batch_a, batch_b, rng, mes
         metrics = {k: v if k in ("cl_correct", "cl_total")
                    else psum(v, mesh.data_group) / mesh.n_data for k, v in metrics.items()}
     return metrics
+
+
+def model_axis_backward(config: RecformerConfig, model, out, batch_a, batch_b, mesh,
+                        own=None):
+    """The backward of a pretraining step whose towers ran split over the
+    mesh's ``seq`` or ``pipe`` axis, every rank of that axis computing the
+    loss alike (the ``'full'`` data-parallel share of the global loss), and
+    the gradients summed over the world (data x that axis), so every rank
+    holds the same whole gradients:
+
+    - sequence parallelism (``own`` None): the gathered hidden state's
+      backward sums the axis's equal cotangents, and each replicated
+      tensor's gradient is whole on every rank, so every gradient counts S
+      times: the loss is divided by S;
+    - pipeline parallelism: ``own(name)`` says which gradients this rank
+      contributes (its stage's layers, and the replicated rest on the first
+      stage: ``parallel.pipeline.owned_by_stage``); the others are zeroed.
+
+    Returns the detached metrics (the global values)."""
+    loss, metrics = pretrain_loss(config, out, batch_a, batch_b, mesh.data_group)
+    (loss / mesh.n_model if own is None else loss).backward()
+    grads = []
+    for name, p in model.named_parameters():
+        if not p.requires_grad:
+            continue
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        elif own is not None and not own(name):
+            p.grad.zero_()
+        grads.append(p.grad)
+    all_reduce_(grads, None)
+    return {k: v.detach() for k, v in metrics.items()}
 
 
 def make_pretrain_step(config: RecformerConfig, model, optimizer, mesh=None):

@@ -6,6 +6,10 @@ world of 2, one after another):
   (``tests/test_cli_parallel.py``'s), with the same ``SystemExit``s;
 - ``cli.pretrain --tensor_parallel 2`` writes whole tensors: a one-rank
   model loads its parameters, a one-rank optimizer its train state;
+- ``cli.pretrain --sequence_parallel 2 --attention_impl sequence_parallel``
+  and ``--pipeline 2 --scan_layers --microbatches 2`` write whole
+  checkpoints; the pipelined run, stopped by a SIGTERM on rank 1 alone,
+  resumes with ``--resume``;
 - data-parallel ``cli.pretrain``, stopped by a SIGTERM that reaches one rank
   only (both stop at the same step), resumed under ``--zero``;
 - ``cli.evaluate_seq --sharded_eval 2`` against the JAX CLI's sharded
@@ -71,14 +75,34 @@ def test_pretrain_cli_mode_validation(tmp_path):
 
 
 def test_resolve_parallelism_refuses_pp_and_sp_after_validating():
+    """Every refusal of the JAX CLI's ``_resolve_parallelism`` (pipeline
+    without stacked layers, a world or a global batch that the axis or the
+    microbatches do not divide), after which pp and sp resolve to (config,
+    axis size, mode), sp with the full-length global projections."""
     cfg = RecformerConfig.tiny()
     args = pretrain.parse_args(["--data_path", "d", "--pipeline", "2", "--scan_layers"])
-    with pytest.raises(SystemExit, match="next port slice"):
-        pretrain._resolve_parallelism(args, cfg.replace(scan_layers=True), 4)
+    with pytest.raises(SystemExit, match="--pipeline requires --scan_layers"):
+        pretrain._resolve_parallelism(args, cfg, 4)
+    with pytest.raises(SystemExit, match="world size 3 not divisible by 2"):
+        pretrain._resolve_parallelism(args, cfg.replace(scan_layers=True), 3)
+    args3 = pretrain.parse_args(["--data_path", "d", "--pipeline", "2", "--scan_layers",
+                                 "--batch_size", "3", "--microbatches", "2"])
+    with pytest.raises(SystemExit, match="global batch 3 must be divisible by --microbatches 2"):
+        pretrain._resolve_parallelism(args3, cfg.replace(scan_layers=True), 2)
+    pp_cfg, n_model, mode = pretrain._resolve_parallelism(args, cfg.replace(scan_layers=True), 4)
+    assert (n_model, mode, pp_cfg.scan_layers) == (2, "pp", True)
     args = pretrain.parse_args(["--data_path", "d", "--sequence_parallel", "2",
                                 "--attention_impl", "sequence_parallel"])
-    with pytest.raises(SystemExit, match="next port slice"):
-        pretrain._resolve_parallelism(args, cfg.replace(attention_impl="sequence_parallel"), 4)
+    sp_cfg, n_model, mode = pretrain._resolve_parallelism(
+        args, cfg.replace(attention_impl="sequence_parallel"), 4)
+    assert (n_model, mode, sp_cfg.global_kv_mode) == (2, "sp", "full")
+    assert sp_cfg.attention_impl == "sequence_parallel"
+    for flags in (["--pipeline", "2", "--scan_layers"], ["--sequence_parallel", "2",
+                                                         "--attention_impl",
+                                                         "sequence_parallel"]):
+        args = pretrain.parse_args(["--data_path", "d", "--zero", *flags])
+        with pytest.raises(SystemExit, match="--zero composes with plain data parallelism"):
+            pretrain._resolve_parallelism(args, cfg, 4)
     args = pretrain.parse_args(["--data_path", "d", "--tensor_parallel", "2"])
     with pytest.raises(SystemExit, match="not divisible"):
         pretrain._resolve_parallelism(args, cfg, 3)
@@ -105,7 +129,8 @@ def world(tmp_path_factory, checkpoint):
     after another (each CLI joins the world and leaves it up): data-parallel
     pretraining stopped by a SIGTERM on rank 1 alone at its 2nd step
     boundary, its ``--zero --resume``, ``evaluate_seq --sharded_eval 2`` in
-    float32, ``serve`` and ``pretrain --tensor_parallel 2``."""
+    float32, ``serve``, ``pretrain --tensor_parallel 2``, ``--sequence_parallel
+    2``, and ``--pipeline 2`` stopped like the first and resumed."""
     root = tmp_path_factory.mktemp("parallel_clis")
     pre = write_pretrain_corpus(root / "pretrain")
     eval_data = write_corpus(root / "eval")
@@ -124,7 +149,9 @@ def world(tmp_path_factory, checkpoint):
                   checkpoint, "--top_k", "7", "--batch_size", "4", "--device", "cpu"] + COMMON
     eval_args = COMMON + ["--ckpt", checkpoint, "--batch_size", "8", "--encode_batch_size", "8",
                           "--sharded_eval", "2"]
-    dp_out, tp_out = root / "dp", root / "tp"
+    dp_out, tp_out, sp_out, pp_out = root / "dp", root / "tp", root / "sp", root / "pp"
+    pp_args = pretrain_args(pre, pp_out, "--batch_size", "4", "--pipeline", "2", "--scan_layers",
+                            "--microbatches", "2")
     plan = [
         dict(name="dp", module="pretrain", args=pretrain_args(pre, dp_out), preempt="1:2"),
         dict(name="zero", module="pretrain",
@@ -134,10 +161,15 @@ def world(tmp_path_factory, checkpoint):
         dict(name="serve", module="serve", args=serve_args + ["--output", str(root / "two.jsonl")]),
         dict(name="tp", module="pretrain",
              args=pretrain_args(pre, tp_out, "--batch_size", "4", "--tensor_parallel", "2")),
+        dict(name="sp", module="pretrain",
+             args=pretrain_args(pre, sp_out, "--batch_size", "4", "--sequence_parallel", "2",
+                                "--attention_impl", "sequence_parallel")),
+        dict(name="pp", module="pretrain", args=pp_args, preempt="1:2"),
+        dict(name="pp_resume", module="pretrain", args=pp_args + ["--resume"]),
     ]
     ranks = run_cli_world(2, plan, root)
-    return dict(ranks=ranks, root=root, dp_out=dp_out, tp_out=tp_out, serve_args=serve_args,
-                eval_args=eval_args)
+    return dict(ranks=ranks, root=root, dp_out=dp_out, tp_out=tp_out, sp_out=sp_out,
+                pp_out=pp_out, serve_args=serve_args, eval_args=eval_args)
 
 
 def test_pretrain_cli_tensor_parallel_writes_whole_tensors(world):
@@ -182,6 +214,38 @@ def test_pretrain_cli_data_parallel_preemption_and_zero_resume(world):
         tuple(s) for s in shapes)
 
 
+def whole_checkpoints(out, **config):
+    """``best.pt`` and ``last.pt`` load into a one-rank model, strictly; the
+    saved config has ``config``'s values; the dev accuracies are finite."""
+    cfg = RecformerConfig.load(str(out / "config.json"))
+    assert all(getattr(cfg, k) == v for k, v in config.items()), cfg
+    whole = RecformerForPretraining(RecformerConfig.tiny())
+    for name in ("best.pt", "last.pt"):
+        whole.load_state_dict(torch.load(out / name, weights_only=True), strict=True)
+    with open(out / "logs" / "metrics.jsonl") as f:
+        accs = [r["dev_accuracy"] for r in map(json.loads, f) if "dev_accuracy" in r]
+    assert accs and all(np.isfinite(a) for a in accs)
+
+
+def test_pretrain_cli_sequence_parallel_writes_whole_checkpoints(world):
+    assert [r["sp"]["steps"] for r in world["ranks"]] == [6, 6]
+    whole_checkpoints(world["sp_out"], attention_impl="sequence_parallel",
+                      global_kv_mode="full")
+
+
+def test_pretrain_cli_pipeline_preemption_and_resume(world):
+    """Pipe 2, 2 microbatches, 6 steps an epoch; rank 1 alone gets a SIGTERM
+    at its 2nd step boundary: both stages stop at step 2, and ``--resume``
+    restarts the interrupted epoch and runs to its end."""
+    first = [r["pp"] for r in world["ranks"]]
+    assert [r["steps"] for r in first] == [2, 2]
+    assert all(r["preempted"] == signal.SIGTERM for r in first)
+    second = [r["pp_resume"] for r in world["ranks"]]
+    assert [r["steps"] for r in second] == [8, 8]
+    assert all("preempted" not in r for r in second)
+    whole_checkpoints(world["pp_out"], scan_layers=True)
+
+
 def test_evaluate_seq_sharded_matches_jax(world, tmp_path, monkeypatch):
     """Test-split metrics against a catalog row-sharded over 2 ranks (25
     items: one padding row), float32, within 1e-5 of the JAX CLI's
@@ -214,5 +278,6 @@ def test_dryrun_world_4():
     out = run_torchrun(4, ["-m", "recformer_tpu_torch.parallel.dryrun", "--device", "cpu"])
     assert "backend=gloo world=4 data=2 model=2" in out
     for name in ("pretrain", "finetune_sampled", "finetune_full", "zero", "tensor_parallel",
-                 "local"):
+                 "local", "sequence_parallel_forward", "sequence_parallel", "pipeline_forward",
+                 "pipeline_parallel"):
         assert f"[dryrun] {name} " in out, out[-3000:]

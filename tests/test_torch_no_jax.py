@@ -28,7 +28,7 @@ def test_importing_every_module_loads_no_jax():
                  "utils.clustering", "cli.cluster", "pipelines.amazon", "utils.profiling",
                  "examples.synthetic_end_to_end", "parallel.mesh", "parallel.collectives",
                  "parallel.catalog", "parallel.tensor", "parallel.dryrun", "cli.pretrain",
-                 "cli.serve"):
+                 "cli.serve", "parallel.sequence", "parallel.pipeline"):
         assert f"recformer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

@@ -8,7 +8,7 @@ and start a world of ``gloo`` ranks on the CPU:
         tests/torch_parallel_worker.py IN.pt OUT_DIR
 
 (or ``... tests/torch_parallel_worker.py --clis PLAN.json OUT_DIR`` for a
-plan of the port's CLIs, run one after another in one world). Each rank runs the named scenarios over a ``data`` x ``model`` mesh and
+plan of the port's CLIs, run one after another in one world). Each rank runs the named scenarios over a ``data`` x ``model`` (or ``pipe``, or ``seq``) mesh and
 writes its results to ``OUT_DIR/rank<r>.pt``; the test compares them with
 the JAX package. Nothing here imports JAX. Every world runs under a
 subprocess timeout (its process group killed when it expires) and every
@@ -283,8 +283,153 @@ def tensor_parallel(mesh, inp):
     return out
 
 
+def sp_attention(mesh, inp):
+    """The sequence-parallel op over the mesh's seq group for each case: its
+    output, and the gradients of ``sum(out ** 2)`` in q, k, v, k_g and v_g."""
+    from recformer_tpu_torch.parallel.sequence import make_sequence_parallel_attention
+
+    out = []
+    for case in inp["sp_attention"]:
+        xs = [x.clone().requires_grad_() for x in case["inputs"]]
+        y = make_sequence_parallel_attention(mesh, case["window"])(*xs, case["mask"])
+        (y ** 2).sum().backward()
+        out.append(dict(out=y.detach(), grads=[xs[i].grad for i in (0, 1, 2, 4, 5)]))
+    return out
+
+
+def sp_dropout(mesh, inp):
+    """The op with attention dropout: two runs from one seed, one from
+    another, the mean over many seeds, the clean output, and this rank's
+    stream's seed."""
+    from recformer_tpu_torch.parallel.sequence import make_sequence_parallel_attention
+    from recformer_tpu_torch.utils.rng import StepRNG, head_group_rng
+
+    d = inp["sp_dropout"]
+    run = make_sequence_parallel_attention(mesh, d["window"])
+    with torch.no_grad():
+        clean = run(*d["inputs"], d["mask"])
+        a, b, c = (run(*d["inputs"], d["mask"], d["rate"], StepRNG(s)) for s in (7, 7, 8))
+        mean = torch.stack([run(*d["inputs"], d["mask"], d["rate"], StepRNG(100 + s))
+                            for s in range(d["seeds"])]).mean(0)
+    return dict(clean=clean, a=a, b=b, c=c, mean=mean,
+                seed=head_group_rng(StepRNG(7), mesh.model_rank).seed)
+
+
+def sp_backbone(mesh, inp):
+    """The sequence-parallel backbone on the JAX weights: deterministic, then
+    twice in training mode from one seed and once from another."""
+    from recformer_tpu_torch.models.recformer import RecformerModel
+    from recformer_tpu_torch.parallel.sequence import make_sequence_parallel_forward
+    from recformer_tpu_torch.utils.rng import StepRNG
+
+    d = inp["sp_backbone"]
+    _, model = _model(RecformerModel, d["cfg"], d["state"])
+    run = make_sequence_parallel_forward(model, mesh)
+    with torch.no_grad():
+        hidden, pooled = run(d["batch"])
+        train = [run(d["batch"], StepRNG(s), deterministic=False)[1] for s in (1, 1, 2)]
+    return dict(hidden=hidden, pooled=pooled, train=train)
+
+
+def _model_axis_step(mesh, d, make):
+    """``step.backward`` of a sequence- or pipeline-parallel step on this data
+    rank's rows of the JAX global batch, one SGD update."""
+    from recformer_tpu_torch.models.heads import RecformerForPretraining
+    from recformer_tpu_torch.training.steps import take_rows
+    from recformer_tpu_torch.utils.rng import StepRNG
+
+    cfg, model = _model(RecformerForPretraining, d["cfg"], d["state"])
+    opt = SGD(model, d["lr"])
+    step = make(cfg, model, opt)
+    metrics = step.backward(take_rows(d["batch_a"], mesh), take_rows(d["batch_b"], mesh),
+                            StepRNG(0))
+    opt.step()
+    return dict(params=_params(model), loss=metrics["loss"])
+
+
+def sp_step(mesh, inp):
+    from recformer_tpu_torch.parallel.sequence import make_sp_pretrain_step
+
+    return _model_axis_step(mesh, inp["sp_step"],
+                            lambda cfg, model, opt: make_sp_pretrain_step(cfg, model, opt, mesh))
+
+
+def pp_forward(mesh, inp):
+    """The pipelined backbone on the JAX weights for each microbatch count,
+    and for the first the gradients of ``sum(pooled ** 2)``, each stage's
+    own summed over the pipe group (``owned_by_stage``)."""
+    from recformer_tpu_torch.models.recformer import RecformerModel
+    from recformer_tpu_torch.parallel.collectives import all_reduce_
+    from recformer_tpu_torch.parallel.pipeline import make_pipeline_forward, owned_by_stage
+
+    def grads_of(model, pooled, own=None):
+        (pooled.float() ** 2).sum().backward()
+        grads = {n: p.grad if own is None or own(n) else torch.zeros_like(p)
+                 for n, p in model.named_parameters()}
+        if own is not None:
+            all_reduce_(list(grads.values()), mesh.model_group)
+        return grads
+
+    d = inp["pp_forward"]
+    out = []
+    for i, M in enumerate(d["microbatches"]):
+        cfg, model = _model(RecformerModel, d["cfg"], d["state"])
+        hidden, pooled = make_pipeline_forward(model, mesh, M)(d["batch"])
+        res = dict(hidden=hidden.detach(), pooled=pooled.detach())
+        if i == 0:
+            own = owned_by_stage(cfg, mesh.n_model, mesh.model_rank)
+            res["grads"] = grads_of(model, pooled, own)
+            # the same in float64, pipelined and not: the float32 rounding of
+            # the small embedding gradients is ~1e-5, above a pipeline fault
+            kw = dict(d["cfg"], dtype="float64", param_dtype="float64", attention_impl="chunked")
+            state = {k: v.double() for k, v in d["state"].items()}
+            cfg, model = _model(RecformerModel, kw, state)
+            res["grads64"] = grads_of(model, make_pipeline_forward(model, mesh, M)(d["batch"])[1],
+                                      own)
+            _, model = _model(RecformerModel, kw, state)
+            res["grads64_one_rank"] = grads_of(model, model(**d["batch"])[1])
+        out.append(res)
+    return out
+
+
+def pp_step(mesh, inp):
+    from recformer_tpu_torch.parallel.pipeline import make_pipeline_pretrain_step
+
+    d = inp["pp_step"]
+    return _model_axis_step(mesh, d, lambda cfg, model, opt: make_pipeline_pretrain_step(
+        cfg, model, opt, mesh, d["microbatches"]))
+
+
+def model_axis_remat(mesh, inp):
+    """One sequence- or pipeline-parallel step (``inp["kind"]``) with dropout
+    on, from one seed, without remat and under each policy: the gradients,
+    and the generator's next draw."""
+    from recformer_tpu_torch.models.heads import RecformerForPretraining
+    from recformer_tpu_torch.parallel.pipeline import make_pipeline_pretrain_step
+    from recformer_tpu_torch.parallel.sequence import make_sp_pretrain_step
+    from recformer_tpu_torch.training.steps import take_rows
+    from recformer_tpu_torch.utils.rng import StepRNG
+
+    d = inp["model_axis_remat"]
+    out = {}
+    for policy in (None, "full", "save_attention"):
+        kw = dict(d["cfg"], remat=policy is not None, remat_policy=policy or "full")
+        cfg, model = _model(RecformerForPretraining, kw, d["state"])
+        if d["kind"] == "sp":
+            step = make_sp_pretrain_step(cfg, model, None, mesh)
+        else:
+            step = make_pipeline_pretrain_step(cfg, model, None, mesh, 2)
+        rng = StepRNG(3)
+        step.backward(take_rows(d["batch_a"], mesh), take_rows(d["batch_b"], mesh), rng)
+        out[str(policy)] = dict(grads={n: p.grad.clone() for n, p in model.named_parameters()},
+                                after=int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                                        generator=rng.host)))
+    return out
+
+
 SCENARIOS = {f.__name__: f for f in (catalog, dp_full, local, dp_eval, zero, dropout_streams,
-                                      tensor_parallel)}
+                                      tensor_parallel, sp_attention, sp_dropout, sp_backbone,
+                                      sp_step, pp_forward, pp_step, model_axis_remat)}
 
 
 class SignalAfter(dict):
@@ -358,10 +503,15 @@ def main(argv) -> int:
     meshes = {}
     try:
         results = {}
-        for name, n_model in inp["scenarios"].items():
-            if n_model not in meshes:  # made collectively, in the same order on every rank
-                meshes[n_model] = make_mesh(n_model, "cpu", timeout_s=GROUP_TIMEOUT_S)
-            results[name] = SCENARIOS[name](meshes[n_model], inp)
+        for name, spec in inp["scenarios"].items():
+            # a mesh spec: the model-axis size, or (size, axis name); a scenario
+            # name "fn@tag" runs fn on the inputs under that name
+            n_model, axis = spec if isinstance(spec, (tuple, list)) else (spec, "model")
+            if (n_model, axis) not in meshes:  # made collectively, in one order on every rank
+                meshes[n_model, axis] = make_mesh(n_model, "cpu", timeout_s=GROUP_TIMEOUT_S,
+                                                  axis=axis)
+            fn = name.split("@")[0]
+            results[name] = SCENARIOS[fn](meshes[n_model, axis], dict(inp, **{fn: inp[name]}))
         rank = next(iter(meshes.values())).rank
         torch.save(results, os.path.join(argv[1], f"rank{rank}.pt"))
     finally:
