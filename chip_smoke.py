@@ -185,12 +185,12 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     parallelism needs): dist_check, each
     collective of ``parallel/collectives.py`` against local arithmetic, bit
     for bit; dp_pretrain_step, base width, batch 8 a rank, dropout 0.1,
-    ``contrastive_gradient='full'``, 1 warm-up + 3 timed steps (each
+    ``contrastive_gradient='full'``, 2 warm-up + 10 timed steps (each
     rank's launches a step, 24/24 on the tensor cores, peak GiB, steps/s),
     then the float32 gradients of one deterministic step over the 2 ranks
     (a global batch of 8, 4 a rank) against the one-rank step on that batch
     (the gate of 11); dp_local_step, ``'local'`` on one fixed batch without
-    dropout, 6 steps, whose loss must fall; zero_step, 2 steps of one
+    dropout, 6 steps, whose loss must fall; zero_step, 3 steps of one
     backward each updated by plain DP's AdamW and by ZeRO's: the updates
     bit-equal, each one's AdamW state a rank (ZeRO's the share the
     placement rule predicts) and host-timed update, the backward's
@@ -204,7 +204,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     relative, and no padded id for users whose every score is negative;
 31. dp_tp_step_ln_kernels: a world of 4 (data 2 x model 2) under
     ``embed_ln_impl='pallas'``, ``ln_impl='pallas_bwd'`` and ``--remat
-    --remat_policy save_attention``, 2 steps: launches a step as the code
+    --remat_policy save_attention``, 5 steps: launches a step as the code
     says (kernel 1 not relaunched in the backward), each LayerNorm launch
     one device kernel;
 32. parallel_clis, run by the world of 2 after its other phases, one
@@ -213,8 +213,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     ranks, the same ids as one rank; ``cli.pretrain --model_size base
     --tensor_parallel 2``, its ``best.pt`` whole and read by a one-rank
     ``cli.finetune`` for one epoch a stage; ``cli.pretrain --zero`` on 2
-    data ranks with a SIGTERM on rank 1 alone after step 2: both ranks stop
-    at step 2, and ``--resume`` runs to the end;
+    data ranks with a SIGTERM on rank 1 alone after step 5: both ranks stop
+    at step 5, and ``--resume`` runs to the end;
 33. parallel_dryrun: ``parallel/dryrun.py``'s ``dryrun`` (what ``python -m
     recformer_tpu_torch.parallel.dryrun`` runs) at the end of the worlds of 2
     and 4: every step's loss finite and equal on every rank (its sequence-
@@ -3386,7 +3386,7 @@ def rank_train(cfg, mesh, seed, batch, warmup, steps, zero=False, lr=5e-5, fixed
 
     table, ids, lens = pretrain_world(cfg, seed, batch=batch)
     model = seeded_model(RecformerForPretraining, cfg, seed)
-    if mesh.axis == "model" and mesh.n_model > 1:
+    if mesh.tensor_parallel:
         shard_model_tp(model, mesh)
     opt = create_optimizer(model, learning_rate=lr,
                            warmup_steps=1000 if fixed_seed is None else 2,
@@ -3463,7 +3463,7 @@ def rank_grad_gate(mesh, seed, tp_cfg=None, kind=None) -> dict:
     ba, bb = make_pretrain_batch(torch.Generator(device="cuda").manual_seed(seed), table, ids,
                                  lens, cfg)
     model = seeded_model(RecformerForPretraining, pcfg, seed)
-    tp = mesh.axis == "model" and mesh.n_model > 1
+    tp = mesh.tensor_parallel
     if tp:
         shard_model_tp(model, mesh)
     if kind is None:
@@ -3492,7 +3492,7 @@ def rank_grad_gate(mesh, seed, tp_cfg=None, kind=None) -> dict:
                 loss_one_rank=ref_loss)
 
 
-def rank_zero_bit_equal(mesh, seed, steps=2) -> dict:
+def rank_zero_bit_equal(mesh, seed, steps=3) -> dict:
     """Plain data-parallel AdamW and ZeRO from one set of weights, handed the
     same reduced gradients each step (one backward a step, shared): the
     parameters after each update bit-equal; each one's AdamW state bytes,
@@ -3651,7 +3651,7 @@ def rank_world2(args) -> dict:
     out["dist_check"] = rank_dist_check(dp)
 
     cfg = RecformerConfig.base()
-    run, model, one = rank_train(cfg, dp, seed, 8 * dp.n_data, warmup=1, steps=3)
+    run, model, one = rank_train(cfg, dp, seed, 8 * dp.n_data, warmup=2, steps=10)
     del model, one
     torch.cuda.empty_cache()
     run["gate"] = rank_grad_gate(dp, seed)
@@ -3670,7 +3670,7 @@ def rank_world2(args) -> dict:
     out["tp_step"] = {}
     for kv in ("thin", "full"):
         tcfg = tp_config(cfg.replace(global_kv_mode=kv))
-        run, model, one = rank_train(tcfg, tp, seed, 8, warmup=1, steps=1)
+        run, model, one = rank_train(tcfg, tp, seed, 8, warmup=1, steps=2)
         run["replicated_digests"] = {n: digest(p) for n, p in model.named_parameters()
                                      if tp_split_dim(n) is None}
         run["local_heads"] = (model.longformer.encoder.layer[0].attention.self.query.weight
@@ -3753,7 +3753,7 @@ def rank_sharded_catalog(mesh, seed) -> dict:
 
 def rank_world4(args) -> dict:
     """dp_tp_step_ln_kernels: data 2 x model 2 under the LayerNorm kernels
-    and ``--remat --remat_policy save_attention``, 2 steps, and the device
+    and ``--remat --remat_policy save_attention``, 5 steps, and the device
     kernels of one profiled step; sp_step_dp (data 2 x seq 2) and
     pp_step_dp (data 2 x pipe 2); the dry run."""
     from recformer_tpu_torch.config import RecformerConfig
@@ -3763,7 +3763,7 @@ def rank_world4(args) -> dict:
     mesh = make_mesh(2, "cuda", timeout_s=RANK_TIMEOUT_S)
     cfg = tp_config(RecformerConfig.base(embed_ln_impl="pallas", ln_impl="pallas_bwd",
                                          remat=True, remat_policy="save_attention"))
-    run, model, one = rank_train(cfg, mesh, args.seed, 8 * mesh.n_data, warmup=1, steps=2)
+    run, model, one = rank_train(cfg, mesh, args.seed, 8 * mesh.n_data, warmup=1, steps=5)
     names = kernels_per_call(one, warm=False)
     ln = [m.group(1) for m in map(LN_KERNEL_NAME.search, names) if m]
     run["layernorm_device_kernels_per_step"] = {k: ln.count(k) for k in sorted(set(ln))}
@@ -4059,7 +4059,7 @@ def prepare_parallel_clis(seed, tmp) -> dict:
     after another: ``cli.evaluate_seq --sharded_eval 2`` (float32) and
     ``cli.serve``, each against the same command on one rank here;
     ``cli.pretrain --zero`` on 2 data ranks with a SIGTERM on rank 1 alone
-    after step 2, then ``--resume``; ``cli.pretrain --tensor_parallel 2``,
+    after step 5, then ``--resume``; ``cli.pretrain --tensor_parallel 2``,
     ``--sequence_parallel 2 --attention_impl sequence_parallel`` and
     ``--pipeline 2 --scan_layers --microbatches 2`` (1 epoch of 3 steps, a
     SIGTERM on rank 1 alone after step 2, then ``--resume``)."""
@@ -4108,14 +4108,14 @@ def prepare_parallel_clis(seed, tmp) -> dict:
     pp_args = base_args + ["--output_dir", pp_out, "--num_train_epochs", "1", "--batch_size",
                            "8", "--gradient_accumulation_steps", "2", "--pipeline", "2",
                            "--scan_layers", "--microbatches", "2"]
-    z_args = base_args + ["--output_dir", z_out, "--num_train_epochs", "1", "--batch_size",
+    z_args = base_args + ["--output_dir", z_out, "--num_train_epochs", "2", "--batch_size",
                           "4", "--gradient_accumulation_steps", "2", "--zero"]
     plan = [
         dict(name="evaluate_seq", module="evaluate_seq", float32=True,
              args=common + ["--batch_size", "16", "--sharded_eval", "2"]),
         dict(name="serve", module="serve",
              args=serve_args + ["--output", os.path.join(tmp, "two.jsonl")]),
-        dict(name="zero", module="pretrain", args=z_args, preempt="1:2"),
+        dict(name="zero", module="pretrain", args=z_args, preempt="1:5"),
         dict(name="zero_resume", module="pretrain", args=z_args + ["--resume"]),
         dict(name="tp", module="pretrain", args=base_args + [
             "--output_dir", tp_out, "--num_train_epochs", "1", "--batch_size", "8",
@@ -4171,13 +4171,13 @@ def check_parallel_clis(seed, ranks, ctx) -> dict:
 
     first = [r["zero"]["result"] for r in ranks]
     second = [r["zero_resume"]["result"] for r in ranks]
-    ok = ([r["steps"] for r in first] == [2, 2]
+    ok = ([r["steps"] for r in first] == [5, 5]
           and all(r["preempted"] == signal.SIGTERM for r in first)
-          and [r["steps"] for r in second] == [5, 5]
+          and [r["steps"] for r in second] == [8, 8]
           and all("preempted" not in r for r in second)
           and {"state.pt", "last.pt", "config.json"} <= set(os.listdir(z_out)))
     emit("parallel_cli_pretrain_zero_preemption", world=2, zero=True,
-         sigterm="rank 1 only, after step 2", stopped_at_per_rank=[r["steps"] for r in first],
+         sigterm="rank 1 only, after step 5", stopped_at_per_rank=[r["steps"] for r in first],
          resumed=second, peak_memory_gib_per_rank=[r["zero"]["peak_memory_gib"]
                                                    for r in ranks], ok=ok)
     if not ok:
@@ -4185,7 +4185,7 @@ def check_parallel_clis(seed, ranks, ctx) -> dict:
 
     ft = os.path.join(tmp, "finetune")
     os.makedirs(ft)
-    write_corpus(ft, n_items=64, n_users=16, seed=seed + 1, hist=(16, 51))
+    write_corpus(ft, n_items=128, n_users=32, seed=seed + 1, hist=(16, 51))
 
     def into_one_rank_finetune(out_dir, name):
         """``out_dir``'s ``best.pt``, whole, into a one-rank ``cli.finetune``

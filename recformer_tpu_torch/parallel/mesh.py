@@ -84,6 +84,12 @@ class Mesh:
         return self.n_data * self.n_model
 
     @property
+    def tensor_parallel(self) -> bool:
+        """Whether the second axis splits the parameters (Megatron tensor
+        parallelism); under ``pipe`` and ``seq`` every rank holds them whole."""
+        return self.axis == MODEL_AXIS and self.n_model > 1
+
+    @property
     def data_rank(self) -> int:
         return self.rank // self.n_model
 

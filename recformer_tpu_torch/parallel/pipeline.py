@@ -16,8 +16,10 @@ runs its layers and sends the activations on; the last stage's outputs are
 broadcast to every stage (JAX's ``psum`` of the last stage's outputs). In
 the backward, the microbatches run in reverse order, each through
 ``torch.autograd.backward`` of the stage's outputs, each input gradient sent
-upstream; stage 0's gradient of the pipeline's input is broadcast, so every
-rank's embeddings see it. Each stage runs its M microbatches only, not
+upstream; only stage 0 returns a gradient of the pipeline's input (the
+embeddings' gradients count on stage 0 alone, see ``owned_by_stage``, so
+the later stages skip the embeddings' backward). Each stage runs its M
+microbatches only, not
 JAX's M + S - 1 masked ticks: the outputs are the same, and kernels 1 and 2
 launch ``L/S x M`` times a tower on each rank. Embeddings, the pooler and
 the MLM head run on every rank alike, outside the pipeline.
@@ -29,9 +31,9 @@ layer runs under ``models.encoder.remat_layer`` (the JAX stages call the
 layer directly and drop ``--remat``; the port keeps it).
 
 Gradients: a rank holds its stage's layers' gradients, and the whole
-gradients of the replicated rest; ``owned_by_stage`` keeps the former and,
-on stage 0 only, the latter, and ``training.steps.model_axis_backward`` sums
-them over the world.
+gradients of the pooler and heads (stage 0 the embeddings' too);
+``owned_by_stage`` keeps the former and, on stage 0 only, the latter, and
+``training.steps.model_axis_backward`` sums them over the world.
 """
 
 from __future__ import annotations
@@ -132,8 +134,7 @@ class _Pipelined(torch.autograd.Function):
         for w in sends:
             w.wait()
         ctx.ins = ctx.outs = None
-        grad_x = torch.cat(dx) if s == 0 else torch.empty_like(grad_hidden)
-        return broadcast(grad_x, 0, g), None, None
+        return (torch.cat(dx) if s == 0 else None), None, None
 
 
 def _make_pipelined_encoder(encoder, mesh, num_microbatches: int):

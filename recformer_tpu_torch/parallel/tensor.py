@@ -72,7 +72,7 @@ def shard_state_dict_tp(sd: Dict[str, torch.Tensor], model_rank: int,
 def gather_state_dict_tp(sd: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
     """Whole tensors from every model rank's slices (every rank of the
     model group must call it, in the same order of names)."""
-    if mesh is None or mesh.n_model == 1:
+    if mesh is None or not mesh.tensor_parallel:
         return dict(sd)
     out = {}
     for name, t in sd.items():

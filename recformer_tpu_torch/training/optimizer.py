@@ -26,9 +26,11 @@ Given a mesh (``parallel/mesh.py``), the optimizer works on the rank's
 parameters, whose gradients the training step has already reduced over the
 data group:
 
-- under tensor parallelism (``mesh.n_model > 1``) the parameters that
+- under tensor parallelism (``mesh.tensor_parallel``) the parameters that
   ``parallel.tensor.tp_split_dim`` names are this rank's slices: the global
   norm sums their squares over the model group, the replicated ones once;
+  under pipeline and sequence parallelism every rank holds every parameter
+  and its gradient whole, so nothing is split;
 - ``zero=True`` is ZeRO-1 over the data group (the JAX package's
   ``shard_optimizer_state``): for each parameter whose leading dim divides
   by the data size and that holds at least 1,024 elements, this rank keeps
@@ -94,7 +96,7 @@ class AdamWSchedule:
         self.mesh = mesh
         # parameter index -> the dim it is split on over the model group
         self._tp_dims: Dict[int, int] = {}
-        if mesh is not None and mesh.n_model > 1:
+        if mesh is not None and mesh.tensor_parallel:
             from ..parallel.tensor import tp_split_dim
 
             self._tp_dims = {i: d for i, (n, _) in enumerate(named)

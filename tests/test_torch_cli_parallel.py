@@ -214,14 +214,23 @@ def test_pretrain_cli_data_parallel_preemption_and_zero_resume(world):
         tuple(s) for s in shapes)
 
 
-def whole_checkpoints(out, **config):
-    """``best.pt`` and ``last.pt`` load into a one-rank model, strictly; the
-    saved config has ``config``'s values; the dev accuracies are finite."""
+def whole_checkpoints(out, global_step, **config):
+    """``best.pt`` and ``last.pt`` load into a one-rank model, strictly, and
+    ``state.pt`` into a one-rank model and optimizer, every AdamW moment of
+    its parameter's shape; the saved config has ``config``'s values; the dev
+    accuracies are finite."""
     cfg = RecformerConfig.load(str(out / "config.json"))
     assert all(getattr(cfg, k) == v for k, v in config.items()), cfg
     whole = RecformerForPretraining(RecformerConfig.tiny())
     for name in ("best.pt", "last.pt"):
         whole.load_state_dict(torch.load(out / name, weights_only=True), strict=True)
+    model = RecformerForPretraining(RecformerConfig.tiny())
+    opt = create_optimizer(model)
+    pos = restore_train_state(str(out / "state.pt"), model, opt)
+    assert pos["global_step"] == global_step and opt.micro_steps == global_step
+    moments = opt.optimizer.state_dict()["state"]
+    assert [tuple(m["exp_avg"].shape) for m in moments.values()] == [
+        tuple(p.shape) for g in opt.optimizer.param_groups for p in g["params"]]
     with open(out / "logs" / "metrics.jsonl") as f:
         accs = [r["dev_accuracy"] for r in map(json.loads, f) if "dev_accuracy" in r]
     assert accs and all(np.isfinite(a) for a in accs)
@@ -229,7 +238,7 @@ def whole_checkpoints(out, **config):
 
 def test_pretrain_cli_sequence_parallel_writes_whole_checkpoints(world):
     assert [r["sp"]["steps"] for r in world["ranks"]] == [6, 6]
-    whole_checkpoints(world["sp_out"], attention_impl="sequence_parallel",
+    whole_checkpoints(world["sp_out"], 6, attention_impl="sequence_parallel",
                       global_kv_mode="full")
 
 
@@ -243,7 +252,7 @@ def test_pretrain_cli_pipeline_preemption_and_resume(world):
     second = [r["pp_resume"] for r in world["ranks"]]
     assert [r["steps"] for r in second] == [8, 8]
     assert all("preempted" not in r for r in second)
-    whole_checkpoints(world["pp_out"], scan_layers=True)
+    whole_checkpoints(world["pp_out"], 8, scan_layers=True)
 
 
 def test_evaluate_seq_sharded_matches_jax(world, tmp_path, monkeypatch):

@@ -6,11 +6,13 @@ batches, against JAX on the 8-device CPU mesh of ``conftest.py``, at
 
 - the pipelined backbone against ``make_pipeline_forward`` at (stages,
   microbatches) (2, 4), (2, 1) (data 2 x pipe 2) and (4, 2) (pipe 4);
-- its gradients (each stage's own, summed over the stages) against the
-  port's unpipelined backbone in float64, and against ``jax.grad`` of JAX's
-  pipelined forward in float32;
+- its gradients (each stage's own, summed over the stages) against
+  ``jax.grad`` of JAX's pipelined forward in float32 (the embeddings' at a
+  wider atol), and against the port's unpipelined backbone in float64;
 - the data 2 x pipe 2 step against ``make_pipeline_pretrain_step`` at
-  dropout 0, one SGD update;
+  dropout 0, one SGD update; with ``create_optimizer`` and the gradient
+  clipped, two AdamW updates against the one-rank step's, the second by a
+  one-rank optimizer restored from the pipelined one's whole state;
 - remat in the stages (``full``, ``save_attention``) equal to no remat, with
   dropout on;
 - the validation errors, with JAX's messages.
@@ -38,11 +40,12 @@ from recformer_tpu_torch.models.heads import RecformerForPretraining
 from recformer_tpu_torch.models.recformer import RecformerModel
 from recformer_tpu_torch.parallel import pipeline as tpipe
 from recformer_tpu_torch.weights import from_flax_params
-from torch_parallel_worker import run_world
+from torch_parallel_worker import assert_adamw_matches_one_rank, run_world
 
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
-CROSS_STACK_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+EMBEDDING_GRAD_TOL = dict(rtol=2e-4, atol=1e-4)
+ADAMW_CLIP = 0.05
 CFG = dict(num_hidden_layers=4, attention_window=(8,) * 4, max_token_num=32, item_seq_len=16,
            max_item_embeddings=4, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
            dtype="float32", attention_impl="chunked", scan_layers=True)
@@ -97,7 +100,8 @@ def world(tmp_path_factory):
     fwd = dict(cfg=port_cfg, state=to_torch(bparams), batch={k: t(v) for k, v in batch.items()})
     inputs = {
         "scenarios": {"pp_forward@2": (2, "pipe"), "pp_step": (2, "pipe"),
-                      "model_axis_remat": (2, "pipe"), "pp_forward@4": (4, "pipe")},
+                      "model_axis_remat": (2, "pipe"), "model_axis_adamw": (2, "pipe"),
+                      "pp_forward@4": (4, "pipe")},
         "pp_forward@2": dict(fwd, microbatches=[4, 1]),
         "pp_forward@4": dict(fwd, microbatches=[2]),
         "pp_step": dict(cfg=port_cfg, state=to_torch(sparams), batch_a=ta, batch_b=tb, lr=lr,
@@ -105,6 +109,8 @@ def world(tmp_path_factory):
         "model_axis_remat": dict(kind="pp", cfg=dict(port_cfg, hidden_dropout_prob=0.1,
                                                      attention_probs_dropout_prob=0.1),
                                  state=to_torch(sparams), batch_a=ta, batch_b=tb),
+        "model_axis_adamw": dict(kind="pp", cfg=port_cfg, one_cfg=port_cfg,
+                                 state=to_torch(sparams), batch_a=ta, batch_b=tb, clip=ADAMW_CLIP),
     }
     ranks = run_world(4, inputs, tmp_path_factory.mktemp("pp_world"))
     return dict(ranks=ranks, backbone=(bmodel, bparams, batch),
@@ -126,19 +132,20 @@ def test_forward_matches_jax(world, stages, microbatches):
 def test_gradients_match_jax(world):
     """The port's explicit schedule (pipe 2, 4 microbatches; the stage
     layers' gradients summed over the stages, the replicated rest whole on
-    every stage): in float64 against the port's unpipelined backbone at the
-    JAX test's tolerance, and in float32 against ``jax.grad`` through JAX's
-    ppermute schedule at the port's gradient tolerance against JAX
-    (``test_torch_training.py``'s). In float32 the embeddings' small
-    gradients round to ~1.4e-5 of their float64 values (max 2.7e-4), which
-    JAX's own atol of 2e-5 does not cover between two stacks."""
+    every stage) against ``jax.grad`` through JAX's ppermute schedule in
+    float32, every gradient but the embeddings' at the JAX test's tolerance.
+    The embeddings' small gradients round in float32 to ~1.4e-5 of their
+    float64 values (max 2.7e-4), more than the atol of 2e-5 allows between
+    two stacks (JAX's model keeps its embedding LayerNorm and softmax in
+    float32 under x64 too, so it has no float64 reference): they are held
+    to JAX at atol 1e-4, and, with every other gradient, in float64 to the
+    port's unpipelined backbone at the JAX test's tolerance."""
     model, params, batch = world["backbone"]
     run = make_pipeline_forward(model, Mesh(np.array(jax.devices()[:2]), ("pipe",)), 4)
-
-    def loss(p):
-        return jnp.sum(run(p, batch)[1].astype(jnp.float32) ** 2)
-
-    want = from_flax_params(jax.tree.map(np.asarray, jax.grad(loss)(params)))
+    want = from_flax_params(jax.tree.map(
+        np.asarray, jax.grad(lambda p: jnp.sum(run(p, batch)[1] ** 2))(params)))
+    embeddings = [n for n in want if n.startswith("embeddings.")]
+    assert len(embeddings) == 6
     for r in world["ranks"]:
         got = r["pp_forward@2"][0]
         assert set(got["grads"]) == set(want) == set(got["grads64_one_rank"])
@@ -147,7 +154,7 @@ def test_gradients_match_jax(world):
                                        got["grads64_one_rank"][name].numpy(), err_msg=name,
                                        **GRAD_TOL)
             np.testing.assert_allclose(got["grads"][name].numpy(), w.numpy(), err_msg=name,
-                                       **CROSS_STACK_GRAD_TOL)
+                                       **(EMBEDDING_GRAD_TOL if name in embeddings else GRAD_TOL))
 
 
 def test_data2_pipe2_step_matches_jax(world):
@@ -165,6 +172,15 @@ def test_data2_pipe2_step_matches_jax(world):
                                        **GRAD_TOL)
     for name in want:  # every rank holds the same whole parameters after the update
         assert all(torch.equal(r["params"][name], ranks[0]["params"][name]) for r in ranks)
+
+
+def test_data2_pipe2_adamw_step_matches_one_rank(world):
+    """``create_optimizer`` with the gradient clipped: every rank holds every
+    parameter whole, so its global norm, update and whole AdamW state are the
+    one-rank step's, and a one-rank optimizer restored from that state takes
+    the next update as the one-rank run does."""
+    assert_adamw_matches_one_rank([r["model_axis_adamw"] for r in world["ranks"]], ADAMW_CLIP,
+                                  GRAD_TOL)
 
 
 @pytest.mark.parametrize("policy", ["full", "save_attention"])

@@ -10,7 +10,9 @@ shapes and tolerances:
   its gradients against ``jax.grad``;
 - the backbone against ``make_sequence_parallel_forward``;
 - the data 2 x seq 2 step against ``make_sp_pretrain_step`` at dropout 0,
-  one SGD update (rtol 2e-4, atol 2e-5);
+  one SGD update (rtol 2e-4, atol 2e-5); with ``create_optimizer`` and the
+  gradient clipped, two AdamW updates against the one-rank step's, the
+  second by a one-rank optimizer restored from the SP one's whole state;
 - the dropout streams: deterministic per seed, distinct across shards,
   unbiased (the mean over seeds near the clean output), keep fraction;
 - remat (``full``, ``save_attention``) equal to no remat, with dropout on;
@@ -41,11 +43,12 @@ from recformer_tpu_torch.config import RecformerConfig
 from recformer_tpu_torch.models.heads import RecformerForPretraining
 from recformer_tpu_torch.parallel import sequence as tseq
 from recformer_tpu_torch.weights import from_flax_params
-from torch_parallel_worker import run_world
+from torch_parallel_worker import assert_adamw_matches_one_rank, run_world
 
 OP_TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=5e-4, atol=5e-4)
 STEP_TOL = dict(rtol=2e-4, atol=2e-5)
+ADAMW_CLIP = 0.05
 # (shards, window): windows 16 and 32, and one whose half is a whole shard
 OP_CASES = {4: (16, 32, 128), 2: (16, 32, 256)}
 L_OP = 256
@@ -128,7 +131,8 @@ def world(tmp_path_factory):
     inputs = {
         "scenarios": {"sp_attention@4": (4, "seq"), "sp_attention@2": (2, "seq"),
                       "sp_dropout": (4, "seq"), "sp_backbone": (4, "seq"),
-                      "sp_step": (2, "seq"), "model_axis_remat": (2, "seq")},
+                      "sp_step": (2, "seq"), "model_axis_remat": (2, "seq"),
+                      "model_axis_adamw": (2, "seq")},
         "sp_dropout": dict(inputs=[t(x) for x in dxs], mask=t(dmask), window=16, rate=0.3,
                            seeds=64),
         "sp_backbone": dict(cfg=dict(attention_impl="sequence_parallel", hidden_dropout_prob=0.1,
@@ -147,6 +151,13 @@ def world(tmp_path_factory):
                                  state=from_flax_params(jax.tree.map(np.asarray, sparams)),
                                  batch_a={k: t(v) for k, v in ba.items()},
                                  batch_b={k: t(v) for k, v in bb.items()}),
+        "model_axis_adamw": dict(kind="sp", cfg=dict(STEP_KW, attention_impl="sequence_parallel",
+                                                     global_kv_mode="full"),
+                                 one_cfg=dict(STEP_KW, attention_impl="chunked",
+                                              global_kv_mode="full"),
+                                 state=from_flax_params(jax.tree.map(np.asarray, sparams)),
+                                 batch_a={k: t(v) for k, v in ba.items()},
+                                 batch_b={k: t(v) for k, v in bb.items()}, clip=ADAMW_CLIP),
     }
     for n, d in op.items():
         inputs[f"sp_attention@{n}"] = [dict(inputs=[t(x) for x in d["xs"]], mask=t(d["mask"]),
@@ -231,6 +242,16 @@ def test_data2_seq2_step_matches_jax(world):
                                        **STEP_TOL)
     for name in want:  # every rank holds the same parameters after the update
         assert all(torch.equal(r["params"][name], ranks[0]["params"][name]) for r in ranks)
+
+
+def test_data2_seq2_adamw_step_matches_one_rank(world):
+    """``create_optimizer`` with the gradient clipped: every rank holds every
+    parameter whole, so its global norm, update and whole AdamW state are the
+    one-rank step's (chunked attention on the whole batch), and a one-rank
+    optimizer restored from that state takes the next update as the one-rank
+    run does."""
+    assert_adamw_matches_one_rank([r["model_axis_adamw"] for r in world["ranks"]], ADAMW_CLIP,
+                                  STEP_TOL)
 
 
 @pytest.mark.parametrize("policy", ["full", "save_attention"])

@@ -85,6 +85,37 @@ def run_world(nproc: int, inputs: dict, workdir, timeout: float = 240) -> list:
             for r in range(nproc)]
 
 
+def assert_adamw_matches_one_rank(results, clip: float, tol: dict) -> None:
+    """``model_axis_adamw``'s results of every rank: the gradient was clipped
+    (its one-rank norm above ``clip``), the model-axis norm is the one-rank
+    norm, and after each update the parameters and the whole AdamW moments
+    equal the one-rank step's within ``tol``, in the one-rank shapes."""
+    import numpy as np
+
+    for res in results:
+        for when in ("first", "second"):
+            got = res[when]
+            assert got["one_norm"] > clip, got["one_norm"]
+            np.testing.assert_allclose(got["norm"], got["one_norm"], rtol=1e-5, err_msg=when)
+            for name, w in got["one_params"].items():
+                np.testing.assert_allclose(got["params"][name].numpy(), w.numpy(),
+                                           err_msg=f"{when} {name}", **tol)
+            state, want = got["state"], got["one_state"]
+            assert (state["updates"], state["mini_step"]) == (want["updates"], want["mini_step"])
+            moments, want = state["optimizer"]["state"], want["optimizer"]["state"]
+            assert sorted(moments) == sorted(want)
+            for key in ("exp_avg", "exp_avg_sq"):
+                # relative to the largest moment: a gradient that is zero up to
+                # rounding (the attention keys' biases) has moments of noise
+                scale = max(float(m[key].abs().max()) for m in want.values())
+                for j, m in want.items():
+                    a, b = moments[j][key], m[key]
+                    assert a.shape == b.shape, (when, j, key, a.shape, b.shape)
+                    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=tol["rtol"],
+                                               atol=tol["rtol"] * scale,
+                                               err_msg=f"{when} slot {j} {key}")
+
+
 # ---------------------------------------------------------------------------
 # scenarios (rank side)
 # ---------------------------------------------------------------------------
@@ -357,13 +388,14 @@ def sp_step(mesh, inp):
 def pp_forward(mesh, inp):
     """The pipelined backbone on the JAX weights for each microbatch count,
     and for the first the gradients of ``sum(pooled ** 2)``, each stage's
-    own summed over the pipe group (``owned_by_stage``)."""
+    own summed over the pipe group (``owned_by_stage``), and in float64 the
+    pipelined and the one-rank backbone's."""
     from recformer_tpu_torch.models.recformer import RecformerModel
     from recformer_tpu_torch.parallel.collectives import all_reduce_
     from recformer_tpu_torch.parallel.pipeline import make_pipeline_forward, owned_by_stage
 
     def grads_of(model, pooled, own=None):
-        (pooled.float() ** 2).sum().backward()
+        (pooled ** 2).sum().backward()
         grads = {n: p.grad if own is None or own(n) else torch.zeros_like(p)
                  for n, p in model.named_parameters()}
         if own is not None:
@@ -380,7 +412,7 @@ def pp_forward(mesh, inp):
             own = owned_by_stage(cfg, mesh.n_model, mesh.model_rank)
             res["grads"] = grads_of(model, pooled, own)
             # the same in float64, pipelined and not: the float32 rounding of
-            # the small embedding gradients is ~1e-5, above a pipeline fault
+            # the embeddings' small gradients is ~1e-5, above a pipeline fault
             kw = dict(d["cfg"], dtype="float64", param_dtype="float64", attention_impl="chunked")
             state = {k: v.double() for k, v in d["state"].items()}
             cfg, model = _model(RecformerModel, kw, state)
@@ -427,9 +459,59 @@ def model_axis_remat(mesh, inp):
     return out
 
 
+def model_axis_adamw(mesh, inp):
+    """Two AdamW updates (``create_optimizer``, the gradient clipped) of a
+    sequence- or pipeline-parallel step (``inp["kind"]``) on this data
+    rank's rows and of the one-rank step on the whole batch, from one set of
+    weights; the second update by a one-rank optimizer restored from the
+    model-axis optimizer's whole state (what ``cli.pretrain`` saves in
+    ``state.pt``). After each: the global norm each optimizer clips by, the
+    parameters and the whole optimizer states."""
+    from recformer_tpu_torch.models.heads import RecformerForPretraining
+    from recformer_tpu_torch.parallel.pipeline import make_pipeline_pretrain_step
+    from recformer_tpu_torch.parallel.sequence import make_sp_pretrain_step
+    from recformer_tpu_torch.training.optimizer import create_optimizer
+    from recformer_tpu_torch.training.steps import pretrain_backward, take_rows
+    from recformer_tpu_torch.utils.rng import StepRNG
+
+    d = inp["model_axis_adamw"]
+    kw = dict(learning_rate=1e-3, warmup_steps=0, total_steps=10, weight_decay=0.01,
+              grad_clip=d["clip"])
+    cfg, model = _model(RecformerForPretraining, d["cfg"], d["state"])
+    opt = create_optimizer(model, mesh=mesh, **kw)
+    if d["kind"] == "sp":
+        step = make_sp_pretrain_step(cfg, model, opt, mesh)
+    else:
+        step = make_pipeline_pretrain_step(cfg, model, opt, mesh, 2)
+    one_cfg, one = _model(RecformerForPretraining, d["one_cfg"], d["state"])
+    one_opt = create_optimizer(one, **kw)
+
+    def update(o):
+        norm = float(o._global_norm(o._grads()))
+        o.step()
+        return norm
+
+    def one_step(m, o):
+        pretrain_backward(one_cfg, m, d["batch_a"], d["batch_b"], StepRNG(0))
+        return update(o)
+
+    step.backward(take_rows(d["batch_a"], mesh), take_rows(d["batch_b"], mesh), StepRNG(0))
+    first = dict(norm=update(opt), params=_params(model), state=opt.state_dict(),
+                 one_norm=one_step(one, one_opt), one_params=_params(one),
+                 one_state=one_opt.state_dict())
+    _, restored = _model(RecformerForPretraining, d["one_cfg"], first["params"])
+    r_opt = create_optimizer(restored, **kw)
+    r_opt.load_state_dict(copy.deepcopy(first["state"]))
+    second = dict(norm=one_step(restored, r_opt), params=_params(restored),
+                  state=r_opt.state_dict(), one_norm=one_step(one, one_opt),
+                  one_params=_params(one), one_state=one_opt.state_dict())
+    return dict(first=first, second=second)
+
+
 SCENARIOS = {f.__name__: f for f in (catalog, dp_full, local, dp_eval, zero, dropout_streams,
                                       tensor_parallel, sp_attention, sp_dropout, sp_backbone,
-                                      sp_step, pp_forward, pp_step, model_axis_remat)}
+                                      sp_step, pp_forward, pp_step, model_axis_remat,
+                                      model_axis_adamw)}
 
 
 class SignalAfter(dict):
