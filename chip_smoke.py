@@ -48,13 +48,20 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    kernels 6 and 7: kernel 1's band forward with parts removed, five
    variants; the band products per head and per head pair) against their
    plain versions, bf16, max|err| / max|ref| <= 1e-2, at the probes'
-   defaults (B 16, L 1024, H 12, D 64, W 64) at block_q 256, 128 and 16,
-   with keyloc zero runs and invalid globals, and at irregular edges;
+   defaults (B 16, L 1024, H 12, D 64, W 64) at block_q 256, 128, 64 and
+   16, with keyloc zero runs and invalid globals, rows with no valid key
+   (and no valid global) at block_q 16, 48, 64 and 256, eight globals at
+   256, bands longer than the ring (block_q 512, 1024), and at irregular
+   edges; probe_sass: the warpgroup MMA and TMA
+   instructions ``cuobjdump -sass`` counts in the probes' library (each
+   > 0) and ``-Xptxas -v``'s registers and spills of its kernels;
 7c. probe_time: the probes' entry points (``python -m
    recformer_tpu_torch.benchmarks.kernel_ablation`` / ``.headpair_probe``)
    at block_q 256 and 16, each variant's CUDA-graph and host time beside
-   kernel 1's graph time on the same inputs, the plain versions and the
-   bound; the launches of this phase are the probe kernels' (their path);
+   kernel 1's graph time on the same inputs, the plain versions, the
+   bound, the share of the bound and the times before the redesign for
+   wgmma and TMA; the launches of this phase are the probe kernels' (their
+   path);
 8. serving: Recformer-base (random weights from ``--seed``) encodes a
    synthetic 10,000-item catalog, ranks it for 256 users, and the serve CLI
    answers a few users;
@@ -71,7 +78,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     off, whose loss must fall; pretrain_step_ln_kernels: the same under
     ``embed_ln_impl='pallas'`` and ``ln_impl='pallas_bwd'``, beside it, each
     LayerNorm kernel launch one device kernel;
-    pretrain_turns: both configurations timed in alternating blocks;
+    pretrain_turns: both configurations timed in alternating blocks of 6
+    steps;
 11. pretrain_vs_chunked and pretrain_ln_kernels_vs_plain: the float32
     gradients of one deterministic step through the attention kernels
     against the plain chunked attention, and through the LayerNorm kernels
@@ -185,7 +193,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     parallelism needs): dist_check, each
     collective of ``parallel/collectives.py`` against local arithmetic, bit
     for bit; dp_pretrain_step, base width, batch 8 a rank, dropout 0.1,
-    ``contrastive_gradient='full'``, 2 warm-up + 10 timed steps (each
+    ``contrastive_gradient='full'``, 1 warm-up + 4 timed steps (each
     rank's launches a step, 24/24 on the tensor cores, peak GiB, steps/s),
     then the float32 gradients of one deterministic step over the 2 ranks
     (a global batch of 8, 4 a rank) against the one-rank step on that batch
@@ -204,7 +212,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     relative, and no padded id for users whose every score is negative;
 31. dp_tp_step_ln_kernels: a world of 4 (data 2 x model 2) under
     ``embed_ln_impl='pallas'``, ``ln_impl='pallas_bwd'`` and ``--remat
-    --remat_policy save_attention``, 5 steps: launches a step as the code
+    --remat_policy save_attention``, 2 steps: launches a step as the code
     says (kernel 1 not relaunched in the backward), each LayerNorm launch
     one device kernel;
 32. parallel_clis, run by the world of 2 after its other phases, one
@@ -229,7 +237,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
 35. sp_step and pp_step in the world of 2 (seq 2; pipe 2 with 2
     microbatches and ``scan_layers``), sp_step_dp and pp_step_dp in the
     world of 4 (data 2 x seq 2, data 2 x pipe 2): base width, batch 8 a
-    data rank, dropout 0.1, 1 warm-up + 5 timed steps: launches a step on
+    data rank, dropout 0.1, 1 warm-up + 2 timed steps: launches a step on
     each rank as the code says (none of kernels 1-2 under sp; 24/24 under
     pp, all on the tensor cores), peak GiB, steps/s, the device kernels of
     one profiled step; then the float32 gradients of one deterministic step
@@ -257,6 +265,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import math
 import os
@@ -987,6 +996,18 @@ PROBE_TOL = 1e-2  # max|out - ref| / max|ref|, bf16, every variant; no_softmax's
 #                   outputs are of order 1e31 (the -1e30 mask through P.V), so relative only
 PROBE_BLOCKS = (256, 128, 16)  # the JAX default, a tile of the card's blocks, kernel 1's warp tile
 PROBE_TIME_BLOCKS = (256, 16)
+# kernels 6 and 7's CUDA-graph times before their redesign for wgmma and TMA
+# (the mma.sync kernels they replace; ms, NVIDIA H100 80GB HBM3 at 700 W;
+# PERF.md), kept in the probe_time lines beside this run's
+PROBE_EARLIER_MS = {
+    "band_ablation": {
+        256: {"dots_only": 0.0729, "no_softmax": 0.1087, "no_mask": 0.0969,
+              "band_softmax": 0.1375, "full": 0.1402},
+        16: {"dots_only": 0.0406, "no_softmax": 0.0485, "no_mask": 0.0438,
+             "band_softmax": 0.0565, "full": 0.0596}},
+    "band_headpair": {256: {"perhead": 0.1302, "pair": 0.1576},
+                      16: {"perhead": 0.0605, "pair": 0.0621}},
+}
 
 
 def probe_inputs(seed, B, L, H, W, G, zero_runs=(), invalid_globals=()):
@@ -1011,7 +1032,13 @@ def check_probes():
     see no valid key) and invalid globals (a whole batch row's, so those
     rows have nothing valid at all); then the edges: L = 1008 at block_q 48
     (irregular bands, a block of 7 warps), 8 globals, W = 32, and for the
-    head pair L = 64 < block_q + W (one band, offsets 0) and L = 208."""
+    head pair L = 64 < block_q + W (one band, offsets 0) and L = 208. Then
+    the warpgroup tile (block_q 64), rows with nothing valid at block_q 16,
+    48, 64 and 256 (batch 2's every key and global off, batch 1's keys off
+    over 200 rows with its globals, batch 0's over 80 with its globals on;
+    batch 2 is also held alone), eight globals at block_q 256, and bands
+    longer than the ring of stages (block_q 512 and 1024: 9 and 17 chunks
+    of 64 rows)."""
     from recformer_tpu_torch.benchmarks import headpair_probe as hp
     from recformer_tpu_torch.ops import band_probes as bp
 
@@ -1021,7 +1048,15 @@ def check_probes():
                    invalid_globals=((1, 0), (1, 1), (3, 1))), PROBE_BLOCKS),
              ("L1008_G8", dict(B=2, L=1008, H=4, W=64, G=8, zero_runs=((0, 500, 70),),
                                invalid_globals=((0, 3), (1, 7))), (48, 16, 112)),
-             ("W32", dict(B=2, L=512, H=4, W=32, G=1), (256, 16))]
+             ("W32", dict(B=2, L=512, H=4, W=32, G=1), (256, 16)),
+             ("wgmma_tile", dict(B=16, L=1024, H=12, W=64, G=1), (64,)),
+             ("fully_masked",
+              dict(B=4, L=768, H=4, W=64, G=2, zero_runs=((0, 100, 80), (1, 500, 200), (2, 0, 768)),
+                   invalid_globals=((1, 0), (1, 1), (2, 0), (2, 1))), (16, 48, 64, 256)),
+             ("G8", dict(B=4, L=1024, H=12, W=64, G=8, zero_runs=((0, 300, 70),),
+                         invalid_globals=((0, 2), (3, 7))), (256,)),
+             ("long_band", dict(B=4, L=1024, H=12, W=64, G=1, zero_runs=((1, 600, 90),)),
+              (512, 1024))]
     errs = {}
     for case, kw, blocks in cases:
         ins = probe_inputs(7, **kw)
@@ -1033,18 +1068,24 @@ def check_probes():
                     ref = bp.band_ablation_plain(**ins, **args)
                 torch.cuda.synchronize()
                 err = rel_err(out, ref)
+                # the batch whose rows have nothing valid, held on its own
+                alone = rel_err(out[2], ref[2]) if case == "fully_masked" else None
                 ok = (out.dtype == torch.bfloat16 and out.shape == ins["q"].shape
-                      and bool(torch.isfinite(ref).all()) and err <= PROBE_TOL)
+                      and bool(torch.isfinite(ref).all()) and err <= PROBE_TOL
+                      and (alone is None or alone <= PROBE_TOL))
                 errs[("band_ablation", case, v, bq)] = (err, float((out.float() - ref.float())
                                                                .abs().max()))
                 emit("probe_check", kernel="band_ablation", case=case, variant=v, block_q=bq,
-                     rel_err=err, ok=ok)
+                     rel_err=err, **({} if alone is None else {"masked_batch_rel_err": alone}),
+                     ok=ok)
                 if not ok:
                     raise AssertionError(f"band_ablation {case} {v} block_q {bq}: rel_err {err}")
     hp_cases = [("defaults", dict(B=16, L=1024, P=6, W=64), PROBE_BLOCKS),
                 ("L1008", dict(B=2, L=1008, P=2, W=64), (48, 16)),
                 ("L64", dict(B=2, L=64, P=2, W=64), (16, 64)),
-                ("L208_W32", dict(B=2, L=208, P=2, W=32), (16, 208))]
+                ("L208_W32", dict(B=2, L=208, P=2, W=32), (16, 208)),
+                ("wgmma_tile", dict(B=16, L=1024, P=6, W=64), (64,)),
+                ("long_band", dict(B=4, L=1024, P=6, W=64), (512, 1024))]
     for case, kw, blocks in hp_cases:
         q, k, v_ = hp.make_inputs(9, "cuda", B=kw["B"], L=kw["L"], P=kw["P"])
         for bq in blocks:
@@ -1063,6 +1104,23 @@ def check_probes():
                     raise AssertionError(f"band_headpair {case} {v} block_q {bq}: rel_err {err}")
     torch.cuda.empty_cache()
     return errs
+
+
+def probe_instructions(ptxas_rows) -> dict:
+    """The probes' library holds Hopper's warpgroup MMA and TMA instructions
+    (``cuobjdump -sass``: HGMMA, UTMALDG, UTMASTG; the first two must be
+    there); beside them, ``-Xptxas -v``'s registers and spills of each of
+    its kernels (``ptxas_rows``, from ``_build.ptxas_report``)."""
+    from recformer_tpu_torch.ops import _build
+
+    counts = _build.sass_counts("band_probes")
+    kernels = [{k: r[k] for k in ("kernel", "registers", "spill_stores", "spill_loads")
+                if k in r} for r in ptxas_rows]
+    ok = counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
+    emit("probe_sass", library="band_probes", sass=counts, ptxas=kernels, ok=ok)
+    if not ok:
+        raise AssertionError(f"probe_sass: no wgmma or TMA load in the probes' library: {counts}")
+    return {"sass": counts, "ptxas": kernels}
 
 
 def probe_bound(kernel, variant, block_q, B, L, H, W, G, D=64):
@@ -1094,8 +1152,10 @@ def time_probes(card):
     recformer_tpu_torch.benchmarks.kernel_ablation`` and
     ``.headpair_probe``) at block_q 256 and 16, each variant's CUDA-graph
     device time and host time beside kernel 1's graph time on the same
-    inputs in the same call, the plain versions' host time at block_q 256
-    and the bound. Returns the rows and the probe kernels' launches."""
+    inputs in the same call, the plain versions' host time at block_q 256,
+    the bound, the share of the bound (bound / graph time) and the graph
+    time before the redesign for wgmma and TMA. Returns the rows and the
+    probe kernels' launches."""
     from recformer_tpu_torch.benchmarks import headpair_probe as hp
     from recformer_tpu_torch.benchmarks import kernel_ablation as ka
     from recformer_tpu_torch.ops import band_probes as bp
@@ -1121,11 +1181,17 @@ def time_probes(card):
                                                   ka.W, ka.G)
             rows["band_ablation"][f"{v}@{bq}"] = dict(
                 ms=r[f"{v}_ms"], host_ms=r[f"{v}_host_ms"], bound_ms=b_ms, bound_by=b_by,
-                bytes=nbytes, operations=ops, kernel1_ms=r["kernel1_ms"],
-                plain_ms=abl_plain[v] if bq == 256 else None)
+                share_of_bound=b_ms / r[f"{v}_ms"], bytes=nbytes, operations=ops,
+                kernel1_ms=r["kernel1_ms"], plain_ms=abl_plain[v] if bq == 256 else None,
+                earlier_ms=PROBE_EARLIER_MS["band_ablation"][bq][v])
         emit("probe_time", kernel="band_ablation", block_q=bq,
              graph_ms={v: r[f"{v}_ms"] for v in bp.ABLATION_VARIANTS},
              host_ms={v: r[f"{v}_host_ms"] for v in bp.ABLATION_VARIANTS},
+             bound_ms={v: rows["band_ablation"][f"{v}@{bq}"]["bound_ms"]
+                       for v in bp.ABLATION_VARIANTS},
+             share_of_bound={v: rows["band_ablation"][f"{v}@{bq}"]["share_of_bound"]
+                             for v in bp.ABLATION_VARIANTS},
+             earlier_graph_ms=PROBE_EARLIER_MS["band_ablation"][bq],
              kernel1_graph_ms=r["kernel1_ms"], kernel1_host_ms=r["kernel1_host_ms"], card=card)
     for bq, r in hpr.items():
         for v in bp.HEADPAIR_VARIANTS:
@@ -1133,10 +1199,16 @@ def time_probes(card):
                                                   hp.W, 0)
             rows["band_headpair"][f"{v}@{bq}"] = dict(
                 ms=r[f"{v}_ms"], host_ms=r[f"{v}_host_ms"], bound_ms=b_ms, bound_by=b_by,
-                bytes=nbytes, operations=ops, plain_ms=hp_plain if bq == 256 else None)
+                share_of_bound=b_ms / r[f"{v}_ms"], bytes=nbytes, operations=ops,
+                plain_ms=hp_plain if bq == 256 else None,
+                earlier_ms=PROBE_EARLIER_MS["band_headpair"][bq][v])
         emit("probe_time", kernel="band_headpair", block_q=bq,
              graph_ms={v: r[f"{v}_ms"] for v in bp.HEADPAIR_VARIANTS},
-             host_ms={v: r[f"{v}_host_ms"] for v in bp.HEADPAIR_VARIANTS}, card=card)
+             host_ms={v: r[f"{v}_host_ms"] for v in bp.HEADPAIR_VARIANTS},
+             bound_ms=b_ms,
+             share_of_bound={v: rows["band_headpair"][f"{v}@{bq}"]["share_of_bound"]
+                             for v in bp.HEADPAIR_VARIANTS},
+             earlier_graph_ms=PROBE_EARLIER_MS["band_headpair"][bq], card=card)
     missing = [k for k in PROBE_KERNELS if counts.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"probe_time: {missing} never launched")
@@ -1501,7 +1573,7 @@ def run_pretrain_step(seed, card, phase="pretrain_step", baseline=None, **flags)
 
 
 def run_pretrain_turns(seed, card, blocks=("default", "ln_kernels", "ln_kernels", "default"),
-                       steps=10):
+                       steps=6):
     """The default configuration and the LayerNorm kernels' configuration
     timed in turns in one process (``blocks`` of ``steps`` steps each, after
     2 warm-up steps of each), so that drift over the call falls on both."""
@@ -3616,7 +3688,7 @@ def profiled_step(fn) -> dict:
 
 def rank_model_axis_step(mesh, seed, kind) -> dict:
     """sp_step / pp_step and their data-parallel worlds: base width, batch 8
-    a data rank, dropout 0.1, 1 warm-up + 5 timed steps of the sequence-
+    a data rank, dropout 0.1, 1 warm-up + 2 timed steps of the sequence-
     (``kind='sp'``) or pipeline-parallel (``'pp'``, 2 microbatches) step
     (launches a step, peak GiB, steps/s), the device kernels of one more
     step, then its float32 gradient gate against the one-rank step."""
@@ -3624,7 +3696,7 @@ def rank_model_axis_step(mesh, seed, kind) -> dict:
 
     t0 = time.perf_counter()
     cfg = RecformerConfig.base(**(SP_FLAGS if kind == "sp" else PP_FLAGS))
-    run, model, one = rank_train(cfg, mesh, seed, 8 * mesh.n_data, warmup=1, steps=5,
+    run, model, one = rank_train(cfg, mesh, seed, 8 * mesh.n_data, warmup=1, steps=2,
                                  make=model_axis_step(kind))
     run["profiled_step"] = profiled_step(one)
     run["describe"] = mesh.describe()
@@ -3651,7 +3723,7 @@ def rank_world2(args) -> dict:
     out["dist_check"] = rank_dist_check(dp)
 
     cfg = RecformerConfig.base()
-    run, model, one = rank_train(cfg, dp, seed, 8 * dp.n_data, warmup=2, steps=10)
+    run, model, one = rank_train(cfg, dp, seed, 8 * dp.n_data, warmup=1, steps=4)
     del model, one
     torch.cuda.empty_cache()
     run["gate"] = rank_grad_gate(dp, seed)
@@ -3670,7 +3742,7 @@ def rank_world2(args) -> dict:
     out["tp_step"] = {}
     for kv in ("thin", "full"):
         tcfg = tp_config(cfg.replace(global_kv_mode=kv))
-        run, model, one = rank_train(tcfg, tp, seed, 8, warmup=1, steps=2)
+        run, model, one = rank_train(tcfg, tp, seed, 8, warmup=1, steps=1)
         run["replicated_digests"] = {n: digest(p) for n, p in model.named_parameters()
                                      if tp_split_dim(n) is None}
         run["local_heads"] = (model.longformer.encoder.layer[0].attention.self.query.weight
@@ -3753,7 +3825,7 @@ def rank_sharded_catalog(mesh, seed) -> dict:
 
 def rank_world4(args) -> dict:
     """dp_tp_step_ln_kernels: data 2 x model 2 under the LayerNorm kernels
-    and ``--remat --remat_policy save_attention``, 5 steps, and the device
+    and ``--remat --remat_policy save_attention``, 2 steps, and the device
     kernels of one profiled step; sp_step_dp (data 2 x seq 2) and
     pp_step_dp (data 2 x pipe 2); the dry run."""
     from recformer_tpu_torch.config import RecformerConfig
@@ -3763,7 +3835,7 @@ def rank_world4(args) -> dict:
     mesh = make_mesh(2, "cuda", timeout_s=RANK_TIMEOUT_S)
     cfg = tp_config(RecformerConfig.base(embed_ln_impl="pallas", ln_impl="pallas_bwd",
                                          remat=True, remat_policy="save_attention"))
-    run, model, one = rank_train(cfg, mesh, args.seed, 8 * mesh.n_data, warmup=1, steps=5)
+    run, model, one = rank_train(cfg, mesh, args.seed, 8 * mesh.n_data, warmup=1, steps=2)
     names = kernels_per_call(one, warm=False)
     ln = [m.group(1) for m in map(LN_KERNEL_NAME.search, names) if m]
     run["layernorm_device_kernels_per_step"] = {k: ln.count(k) for k in sorted(set(ln))}
@@ -4275,8 +4347,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["parallel"], default=None,
-                    help="build, then run only the parallel phases (30-36); no result line")
+    ap.add_argument("--only", choices=["parallel", "probes"], default=None,
+                    help="build, then run only the parallel phases (30-36) or the probes' "
+                    "(7b, 7c); no result line")
     # rank mode: this script as one rank of a world that it started itself
     ap.add_argument("--rank-task", choices=["world2", "world4"], help=argparse.SUPPRESS)
     ap.add_argument("--rank-out", help=argparse.SUPPRESS)
@@ -4298,6 +4371,12 @@ def main(argv=None) -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
+    # the probes' source under -Xptxas -v (probe_sass), compiled beside the build
+    ptxas = None
+    if args.only != "parallel":
+        pool = concurrent.futures.ThreadPoolExecutor(1)
+        ptxas = pool.submit(_build.ptxas_report, _build.SOURCES["band_probes"])
+        pool.shutdown(wait=False)
     _build.build_all()
     for name in _build.SOURCES:
         _build.load_library(name)
@@ -4309,6 +4388,12 @@ def main(argv=None) -> int:
         run_parallel(args.seed, card)
         emit("command_time", seconds=time.perf_counter() - t_start, limit_seconds=1200)
         return 0
+    if args.only == "probes":
+        check_probes()
+        probe_instructions(ptxas.result())
+        time_probes(card)
+        emit("command_time", seconds=time.perf_counter() - t_start, limit_seconds=1200)
+        return 0
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     errs = check_kernels(gen)
@@ -4317,6 +4402,7 @@ def main(argv=None) -> int:
     ln_errs = check_ln_kernels(gen)
     ln_times = time_ln_kernels(gen, card)
     probe_errs = check_probes()
+    probe_sass = probe_instructions(ptxas.result())
     probe_times, probe_counts = time_probes(card)
     phases = {"probe_time": probe_counts, "serving": run_serving(args.seed, card),
               "encode_embed_kernel": run_encode_embed_kernel(args.seed, card),
@@ -4385,7 +4471,10 @@ def main(argv=None) -> int:
         # the row's figures: the reference scripts' default block_q (256) and
         # their last variant; every variant at block_q 256 and 16 under "variants"
         variant = "full" if name == "band_ablation" else "pair"
-        rows = probe_times[name]
+        # the times before the redesign stay in the probe_time lines: every
+        # number here is this run's
+        rows = {n: {k: v for k, v in r.items() if k != "earlier_ms"}
+                for n, r in probe_times[name].items()}
         head = rows[f"{variant}@256"]
         by_phase = {p: c[name] for p, c in phases.items() if c.get(name)}
         checked = {key: e for key, e in probe_errs.items() if key[0] == name}
@@ -4401,7 +4490,7 @@ def main(argv=None) -> int:
             bound_by=head["bound_by"], library_ms=None,
             library_call="none: no single PyTorch call computes this function",
             shape=f"{variant}, block_q 256, the probe's defaults (B 16, L 1024, H 12, D 64, W 64)",
-            variants=rows, card=card)
+            variants=rows, instructions=probe_sass, card=card)
 
     kernels = [kernel_row(name) for name in KERNELS] + [probe_row(n) for n in PROBE_KERNELS]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]

@@ -11,7 +11,13 @@ nothing.
 
 compiles the sources given (by default every kernel source) with
 ``-Xptxas -v`` and prints each kernel's registers, shared memory and
-spills, one JSON line per kernel.
+spills, one JSON line per kernel;
+
+    python3 -m recformer_tpu_torch.ops._build --sass [NAME ...]
+
+builds the libraries named (by default every one) and prints, one JSON line
+each, how many of Hopper's warpgroup MMA (``HGMMA``) and TMA load and store
+(``UTMALDG``, ``UTMASTG``) instructions ``cuobjdump -sass`` finds in each.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ SOURCES = {name: os.path.join(_CSRC, f"{name}.cu")
            for name in ("band_attention_fwd", "band_attention_bwd", "embed_layernorm",
                         "layernorm_bwd", "band_probes")}
 HEADERS = tuple(os.path.join(_CSRC, h)
-                for h in ("band_common.cuh", "band_mma.cuh", "row_reduce.cuh"))
+                for h in ("band_common.cuh", "band_mma.cuh", "row_reduce.cuh", "hopper_tma.cuh"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -111,12 +117,16 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 32 == 0 else t.clone()
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+def _tool(name: str) -> str:
+    path = shutil.which(name) or f"/usr/local/cuda/bin/{name}"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
+        raise RuntimeError(f"{name} not found: the CUDA kernels build on a machine "
                            "with the CUDA toolkit")
     return path
+
+
+def _nvcc() -> str:
+    return _tool("nvcc")
 
 
 def library_path(name: str) -> str:
@@ -199,12 +209,32 @@ def ptxas_report(source: str) -> list:
     return rows
 
 
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")  # wgmma, TMA load, TMA store
+
+
+def sass_counts(name: str) -> dict:
+    """How many instructions of each opcode of ``SASS_OPS`` the built
+    library ``name`` holds (``cuobjdump -sass``)."""
+    load_library(name)
+    out = subprocess.run([_tool("cuobjdump"), "-sass", library_path(name)],
+                         check=True, capture_output=True, text=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", out)) for op in SASS_OPS}
+
+
 if __name__ == "__main__":
     import argparse
 
-    ap = argparse.ArgumentParser(description="registers, shared memory and spills per kernel")
-    ap.add_argument("--ptxas", action="store_true", required=True)
-    ap.add_argument("sources", nargs="*")
-    for src in ap.parse_args().sources or list(SOURCES.values()):
-        for row in ptxas_report(src):
-            print(json.dumps({"source": os.path.basename(src), **row}), flush=True)
+    ap = argparse.ArgumentParser(description="registers, shared memory and spills per kernel; "
+                                 "Hopper instructions per library")
+    mode = ap.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--ptxas", action="store_true")
+    mode.add_argument("--sass", action="store_true")
+    ap.add_argument("names", nargs="*", help="sources (--ptxas) or library names (--sass)")
+    args = ap.parse_args()
+    if args.sass:
+        for name in args.names or list(SOURCES):
+            print(json.dumps({"library": name, **sass_counts(name)}), flush=True)
+    else:
+        for src in args.names or list(SOURCES.values()):
+            for row in ptxas_report(src):
+                print(json.dumps({"source": os.path.basename(src), **row}), flush=True)

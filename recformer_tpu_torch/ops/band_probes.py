@@ -40,12 +40,26 @@ band kernel (kernel 1, ``recformer_tpu/ops/pallas_attention.py::_fwd_kernel``):
 
 What bounds them on the H100 (``PERF.md`` has the times): about 4*D flops
 per (query, key) pair against 8*D bytes of q/k/v/out per row and head in
-bf16, so HBM bytes, as for kernel 1. The kernels take bf16 only, D = 64,
-``block_q`` a multiple of 16 dividing L, W a multiple of 16 and at most 8
-global keys; anything else raises. On CPU tensors the wrappers take the
-plain versions (any float dtype, any shape the reference takes); on CUDA
-tensors they launch the kernels or raise. ``ABLATION_LAUNCHES`` and
-``HEADPAIR_LAUNCHES`` count the launches.
+bf16, so HBM bytes, as for kernel 1; at ``block_q = 256`` the products take
+half the byte time at the tensor cores' peak. The kernels (``csrc/
+band_probes.cu`` with ``csrc/hopper_tma.cuh``) are built for that: a
+persistent block a SM whose one producer thread stages each tile of query
+rows, and the band under it once, by TMA (128-byte swizzled, 64-row
+chunks through a ring of stages on mbarriers) while four consumer
+warpgroups take both products on ``wgmma`` (Q.K^T from shared memory, P.V
+with P from registers) and the mask and online softmax in registers. A
+warpgroup's 64 rows may span several query blocks (``block_q`` below 64 or
+not a multiple of it): it walks the union of their bands and leaves each
+row's other-block columns out (P zero; out of the softmax's max and sum),
+so one path serves every ``block_q``. ``perhead`` and ``pair`` share the
+body and differ in staging alone: one TMA box per head, or one box for the
+pair's 128 lanes; both issue only the per-head products.
+
+The kernels take bf16 only, D = 64, ``block_q`` a multiple of 16 dividing
+L, W a multiple of 16 and at most 8 global keys; anything else raises. On
+CPU tensors the wrappers take the plain versions (any float dtype, any
+shape the reference takes); on CUDA tensors they launch the kernels or
+raise. ``ABLATION_LAUNCHES`` and ``HEADPAIR_LAUNCHES`` count the launches.
 """
 
 from __future__ import annotations
@@ -214,7 +228,7 @@ def _launch_ablation(q, kpad, vpad, keyloc, gk, gv, gvalid, variant, block_q, wi
     if tuple(gv.shape) != tuple(gk.shape) or gk.shape[0] != B or gk.shape[2] != HD:
         raise ValueError(f"gk/gv must be (B, G, H*D), got {tuple(gk.shape)}, {tuple(gv.shape)}")
     q, kpad, vpad, gk = (aligned(t) for t in (q, kpad, vpad, gk))
-    keyloc = keyloc.to(q.device, torch.int32).reshape(B, L + window).contiguous()
+    keyloc = aligned(keyloc.to(q.device, torch.int32).reshape(B, L + window))
     gvalid = gvalid.to(q.device, torch.int32).reshape(B, G).contiguous()
     out = torch.empty_like(q)
     lib = load_library("band_probes")

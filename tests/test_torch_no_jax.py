@@ -58,6 +58,7 @@ def test_sources_name_no_jax():
     names = {os.path.basename(p) for p in sources}
     assert {"embed_layernorm.cu", "layernorm_bwd.cu", "row_reduce.cuh", "layernorm.py",
             "embed_layernorm.py", "band_mma.cuh", "band_probes.cu", "band_probes.py",
+            "hopper_tma.cuh",
             "kernel_ablation.py", "headpair_probe.py", "encode_items.py", "evaluate_seq.py",
             "timing.py", "finetune.py", "checkpoint.py", "logging.py",
             "profile_torch_finetune.py", "finetune_classification.py", "convert_ckpt.py",

@@ -248,3 +248,143 @@ def test_kernels_refuse_what_they_do_not_take():
         bp._launch_headpair(q, q, q, "pair", 48, 64)
     with pytest.raises(TypeError):
         bp._launch_headpair(q.float(), q.float(), q.float(), "pair", 16, 64)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' tile plan (csrc/band_probes.cu), emulated in PyTorch
+# ---------------------------------------------------------------------------
+
+CHUNK = 64  # band rows a stage; query rows a warpgroup (wgmma M)
+
+
+def tile_plan(q, k, v, *, block_q, band, shift, maxoff, tile_rows, keyloc=None, window=None,
+              softmax=False, gscores=None):
+    """The kernels' arithmetic as they schedule it. q: (B, L, n, D); k, v:
+    (B, R, n, D) band rows; query block i's band is ``band`` rows from
+    ``clamp(i*block_q - shift, 0, maxoff)``. A block tile of ``tile_rows``
+    query rows stages the union of its query blocks' bands in chunks of 64
+    rows from the first block's band start (rows past R read as zeros); a
+    warpgroup's 64 rows take the chunks that meet the union of their own
+    blocks' bands, and each row leaves out the columns of other blocks'
+    bands: zero for the plain products, -inf (out of the max and the sum)
+    for the softmax, whose max starts at -1e30 and whose sum and output are
+    rescaled chunk by chunk. ``keyloc`` (B, R) bool and ``window`` give the
+    ablation's mask (-1e30); a chunk in every row's band and outside every
+    row's window takes no product (each score is -1e30). ``gscores`` (B, L,
+    n, G), already masked, join the max and the sum. Returns (B, L, n, D)."""
+    B, L, n, D = q.shape
+    R = k.shape[1]
+    start = lambda i: min(max(i * block_q - shift, 0), maxoff)
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, CHUNK))
+    k, v = pad(k), pad(v)
+    kl = None if keyloc is None else torch.nn.functional.pad(keyloc, (0, CHUNK))
+    out = torch.zeros_like(q)
+    for t0 in range(0, L, tile_rows):
+        c0 = start(t0 // block_q)
+        c1 = start((min(t0 + tile_rows, L) - 1) // block_q) + band
+        for r0 in range(t0, min(t0 + tile_rows, L), CHUNK):
+            rows = torch.arange(r0, min(r0 + CHUNK, L))
+            last = int(rows[-1])
+            lo, hi = start(r0 // block_q), start(last // block_q) + band
+            own = torch.tensor([start(int(t) // block_q) for t in rows])[:, None]
+            m = torch.full((B, n, len(rows), 1), -1e30, dtype=q.dtype)
+            l = torch.zeros_like(m)
+            o = torch.zeros(B, n, len(rows), D, dtype=q.dtype)
+            qr = q[:, rows]
+            if gscores is not None:
+                g = gscores[:, rows].permute(0, 2, 1, 3)
+                m = torch.maximum(m, g.amax(-1, keepdim=True))
+                l = torch.exp(g - m).sum(-1, keepdim=True)
+            for c in range(c0, c1, CHUNK):
+                if not (c < hi and c + CHUNK > lo):
+                    continue
+                cols = torch.arange(c, c + CHUNK)[None, :]
+                all_own = c >= start(last // block_q) and c + CHUNK <= lo + band
+                if keyloc is not None and all_own and (c + CHUNK <= r0 or c > last + window):
+                    s = torch.full((B, n, len(rows), CHUNK), bp.NEG_INF, dtype=q.dtype)
+                else:
+                    s = torch.einsum("bthd,buhd->bhtu", qr, k[:, c:c + CHUNK])
+                    if keyloc is not None:
+                        ok = ((cols - rows[:, None]) >= 0) & ((cols - rows[:, None]) <= window)
+                        ok = ok[None] & kl[:, c:c + CHUNK][:, None, :]
+                        s = torch.where(ok[:, None], s, bp.NEG_INF)
+                mine = ((cols - own) >= 0) & ((cols - own) < band)
+                if softmax:
+                    s = torch.where(mine, s, -torch.inf)
+                    mn = torch.maximum(m, s.amax(-1, keepdim=True))
+                    alpha = torch.exp(m - mn)
+                    e = torch.exp(s - mn)
+                    l = l * alpha + e.sum(-1, keepdim=True)
+                    o = o * alpha
+                    m = mn
+                else:
+                    e = torch.where(mine, s, torch.zeros((), dtype=s.dtype))
+                o = o + torch.einsum("bhtu,buhd->bhtd", e, v[:, c:c + CHUNK])
+            if softmax:
+                o = o / l.clamp_min(1e-30)
+            out[:, rows] = o.permute(0, 2, 1, 3)
+    return out
+
+
+def ablation_tile_plan(ins, variant, block_q, W, H):
+    """The ablation kernel's plan on the reference's inputs (numpy), float64."""
+    t = {name: torch.from_numpy(np.asarray(a, np.float64 if a.dtype != np.int32 else np.int32))
+         for name, a in ins.items()}
+    B, L, HD = t["q"].shape
+    G = t["gk"].shape[1]
+    heads = lambda x: x.reshape(x.shape[0], x.shape[1], H, HD // H)
+    masked = variant in ("no_softmax", "band_softmax", "full")
+    gscores = None
+    if variant == "full":
+        gs = torch.einsum("bthd,bghd->bthg", heads(t["q"]), heads(t["gk"]))
+        gscores = torch.where(t["gvalid"].reshape(B, 1, 1, G) != 0, gs, bp.NEG_INF)
+    out = tile_plan(heads(t["q"]), heads(t["kpad"]), heads(t["vpad"]), block_q=block_q,
+                    band=block_q + W, shift=0, maxoff=L - block_q, tile_rows=256,
+                    keyloc=t["keyloc"].reshape(B, L + W) != 0 if masked else None, window=W,
+                    softmax=variant in ("no_mask", "band_softmax", "full"), gscores=gscores)
+    return out.reshape(B, L, HD)
+
+
+# block_q -> L (a multiple of block_q; 480 leaves a last block tile of 224 rows)
+PLAN_LENGTHS = {16: 480, 48: 480, 64: 512, 256: 512}
+
+
+@pytest.mark.parametrize("G", (1, 8))
+@pytest.mark.parametrize("block_q", sorted(PLAN_LENGTHS))
+@pytest.mark.parametrize("variant", bp.ABLATION_VARIANTS)
+def test_tile_plan_matches_ablation_plain(variant, block_q, G):
+    """The kernel's plan (64-row warpgroups over the union band, other
+    blocks' columns left out, online softmax) equals the plain version in
+    float64, also on rows with no valid key (keys 0..69 and 200..299 off)
+    and, in batch 1, no valid global either: such a row averages its own
+    block's band and nothing else."""
+    L, H, W = PLAN_LENGTHS[block_q], 2, 64
+    ins = ablation_inputs(block_q + G, 2, L, H, W, G, "float32",
+                          zero_keys=(*range(70), *range(200, 300)),
+                          gvalid_zero=tuple((1, g) for g in range(G)))
+    plan = ablation_tile_plan(ins, variant, block_q, W, H)
+    t = {name: torch.from_numpy(np.asarray(a, np.float64 if a.dtype != np.int32 else np.int32))
+         for name, a in ins.items()}
+    ref = bp.band_ablation_plain(**t, variant=variant, block_q=block_q, window=W, num_heads=H)
+    assert ref.dtype == torch.float64 and torch.isfinite(ref).all()
+    assert rel_err(plan.numpy(), ref.numpy()) <= 1e-12, variant
+    # the rows with nothing valid, alone (batch 1, keys 200..299 off)
+    assert rel_err(plan[1, 240:260].numpy(), ref[1, 240:260].numpy()) <= 1e-12
+
+
+@pytest.mark.parametrize("block_q", sorted(PLAN_LENGTHS))
+@pytest.mark.parametrize("variant", bp.HEADPAIR_VARIANTS)
+def test_tile_plan_matches_headpair_plain(variant, block_q):
+    """The head-pair kernels' plan (128-row block tiles, 64-row warpgroups,
+    the union of the clamped bands) equals the one plain version in float64;
+    ``perhead`` and ``pair`` differ in staging only, so one plan serves both."""
+    L, W, P = PLAN_LENGTHS[block_q], 64, 2
+    q, k, v = (torch.from_numpy(a.astype(np.float64))
+               for a in headpair_inputs(block_q, 2, L, P, "float32"))
+    band, offs = bp.headpair_offsets(L, block_q, W)
+    heads = lambda x: x.reshape(2, L, 2 * P, 64)
+    plan = tile_plan(heads(q), heads(k), heads(v), block_q=block_q, band=band, shift=W // 2,
+                     maxoff=L - band, tile_rows=128).reshape(2, L, P * 128)
+    ref = bp.band_headpair_plain(q, k, v, variant=variant, block_q=block_q, window=W)
+    assert offs[-1] == L - band
+    assert rel_err(plan.numpy(), ref.numpy()) <= 1e-12
