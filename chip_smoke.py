@@ -381,7 +381,6 @@ def check_case(name, gen, dtype, fuse=True, **kw):
     path (tensor cores exactly where ``tensor_core_shape`` says). Returns the
     forward's max abs error at dropout 0 and the backward's largest abs
     error over its outputs and both rates."""
-    from recformer_tpu_torch.ops import window_attention as wa
     from recformer_tpu_torch.ops.window_attention import (band_attention, band_attention_bwd,
                                                           window_attention_bwd_plain,
                                                           window_attention_plain)
@@ -394,11 +393,12 @@ def check_case(name, gen, dtype, fuse=True, **kw):
     fwd_err = bwd_err = 0.0
     for rate in (0.0, 0.1):
         drop = dict(dropout_rate=rate, seed=1234 + L)
-        tc_before = wa.TC_LAUNCHES
+        tc_before = read_counts()["band_attention_fwd_tc"]
         with torch.no_grad():
             out = band_attention(**ops, **common, **drop)
         torch.cuda.synchronize()
-        path = "tensor_core" if wa.TC_LAUNCHES - tc_before == 1 else "cuda_core"
+        tc = read_counts()["band_attention_fwd_tc"] - tc_before
+        path = "tensor_core" if tc == 1 else "cuda_core"
         ref = window_attention_plain(**ops, **common, **drop)
         err = float((out.float() - ref.float()).abs().max())
         ok = bool(torch.isfinite(out.float()).all()) and err <= TOL[dtype] and path == want_path
@@ -415,11 +415,12 @@ def check_case(name, gen, dtype, fuse=True, **kw):
         dout = (torch.randn(B, L, H * D, generator=gen, device="cuda") * 0.5).to(dtype)
         if not fuse:  # the wrapper zeroes the gradient at global and padding rows
             dout = torch.where(ops["mrow"][:, :, None] == 1, dout, 0.0)
-        tc_before = wa.BWD_TC_LAUNCHES
+        tc_before = read_counts()["band_attention_bwd_tc"]
         got = band_attention_bwd(**ops, dout=dout, **common, **drop)
         again = band_attention_bwd(**ops, dout=dout, **common, **drop)
         torch.cuda.synchronize()
-        path = "tensor_core" if wa.BWD_TC_LAUNCHES - tc_before == 2 else "cuda_core"
+        tc = read_counts()["band_attention_bwd_tc"] - tc_before
+        path = "tensor_core" if tc == 2 else "cuda_core"
         want = window_attention_bwd_plain(**ops, dout=dout, **common, **drop)
         errs = {n: rel_err(g, w) for n, g, w in zip(BWD_OUTPUTS, got, want)}
         abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
@@ -655,11 +656,10 @@ def device_ms_by_kernel(fn, n: int = 20) -> dict:
             fn()
         torch.cuda.synchronize()
     ms = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            m = re.search(r"band_\w+", e.name)
-            k = m.group(0) if m else e.name[:40]
-            ms[k] = ms.get(k, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+    for e in device_kernels(prof.events()):
+        m = re.search(r"band_\w+", e.name)
+        k = m.group(0) if m else e.name[:40]
+        ms[k] = ms.get(k, 0.0) + e.time_range.elapsed_us() / 1e3 / n
     return ms
 
 
@@ -1423,30 +1423,26 @@ LN_KERNEL_NAME = re.compile(r"::(embed_ln_fwd|embed_ln_bwd|ln_bwd)_kernel<")
 # the counts a run reads: each kernel's, and the attention kernels' tensor-core
 # launches
 COUNTERS = KERNELS + ("band_attention_fwd_tc", "band_attention_bwd_tc") + PROBE_KERNELS
+# the program's counter (``utils/profiling.py``) behind each count
+COUNTER_NAMES = dict(zip(COUNTERS, (
+    "kernel1.launches", "kernel2.launches", "kernel3.launches", "kernel4.launches",
+    "kernel5.launches", "kernel1.tensor_core", "kernel2.tensor_core", "ablation.launches",
+    "headpair.launches")))
 
 
 def reset_counts() -> None:
     """Every kernel's launch count to 0."""
-    from recformer_tpu_torch.ops import band_probes as bp
-    from recformer_tpu_torch.ops import embed_layernorm as tel
-    from recformer_tpu_torch.ops import layernorm as tln
-    from recformer_tpu_torch.ops import window_attention as wa
+    from recformer_tpu_torch.utils import profiling
 
-    wa.LAUNCHES = wa.TC_LAUNCHES = wa.BWD_LAUNCHES = wa.BWD_TC_LAUNCHES = 0
-    tel.LAUNCHES = tel.BWD_LAUNCHES = tln.BWD_LAUNCHES = 0
-    bp.ABLATION_LAUNCHES = bp.HEADPAIR_LAUNCHES = 0
+    profiling.reset_counters()
 
 
 def read_counts() -> dict:
     """Every count of COUNTERS since the last reset."""
-    from recformer_tpu_torch.ops import band_probes as bp
-    from recformer_tpu_torch.ops import embed_layernorm as tel
-    from recformer_tpu_torch.ops import layernorm as tln
-    from recformer_tpu_torch.ops import window_attention as wa
+    from recformer_tpu_torch.utils import profiling
 
-    return dict(zip(COUNTERS, (wa.LAUNCHES, wa.BWD_LAUNCHES, tel.LAUNCHES, tel.BWD_LAUNCHES,
-                               tln.BWD_LAUNCHES, wa.TC_LAUNCHES, wa.BWD_TC_LAUNCHES,
-                               bp.ABLATION_LAUNCHES, bp.HEADPAIR_LAUNCHES)))
+    got = profiling.counters()
+    return {k: got.get(name, 0) for k, name in COUNTER_NAMES.items()}
 
 
 def all_on_tensor_cores(what) -> tuple:

@@ -19,6 +19,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..config import RecformerConfig
+from ..utils.profiling import spanned
 
 IGNORE_INDEX = -100
 
@@ -86,6 +87,7 @@ def assemble_sequences(
     }
 
 
+@spanned("batch")
 def assemble_for_config(table, item_ids, seq_lens, config: RecformerConfig,
                         out_len: int | None = None, pad_token_id: int | None = None,
                         bos_token_id: int | None = None):
@@ -253,6 +255,7 @@ def mlm_for_config(generator, batch, config: RecformerConfig, max_predictions: i
 # Composed batch construction
 # ---------------------------------------------------------------------------
 
+@spanned("batch")
 def make_pretrain_batch(generator: torch.Generator, table, item_ids, seq_lens,
                         config: RecformerConfig):
     """Device-side pretrain batch: pair sampling, then two views, then MLM on
@@ -275,6 +278,7 @@ def finetune_batch_from_targets(table, item_ids, target_pos, config: RecformerCo
     return assemble_for_config(table, item_ids, target_pos, config), labels
 
 
+@spanned("batch")
 def make_finetune_batch(generator: torch.Generator, table, item_ids, seq_lens,
                         config: RecformerConfig):
     """Device-side finetune batch: a target over the whole sequence, then the

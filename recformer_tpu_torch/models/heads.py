@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import RecformerConfig
+from ..utils.profiling import spanned
 from ..utils.rng import dropout
 from .encoder import activation, block_layernorm, dense
 from .recformer import RecformerModel
@@ -34,6 +35,7 @@ def cosine_similarity(x: torch.Tensor, y: torch.Tensor, dim: int = -1, eps: floa
     return ((x / xn) * (y / yn)).sum(dim=dim)
 
 
+@spanned("score")
 def similarity_scores(pooled: torch.Tensor, item_embeddings: torch.Tensor, temp: float):
     """Cosine/temp scores of ``(B, H)`` sequence embeddings against an
     ``(N, H)`` catalog, or ``(B, C, H)`` per-example candidates."""

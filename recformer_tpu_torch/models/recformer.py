@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from ..config import RecformerConfig
+from ..utils.profiling import spanned
 from .embeddings import RecformerEmbeddings
 from .encoder import LongformerEncoder
 
@@ -42,6 +43,7 @@ class RecformerModel(nn.Module):
         self.encoder = LongformerEncoder(config)
         self.pooler = RecformerPooler(config)
 
+    @spanned("forward.encoder")
     def forward(self, input_ids, attention_mask, global_attention_mask, token_type_ids,
                 item_position_ids, position_ids=None, deterministic: bool = True, rng=None):
         """``deterministic=False`` applies dropout, drawn from ``rng`` (a

@@ -59,7 +59,8 @@ The kernels take bf16 only, D = 64, ``block_q`` a multiple of 16 dividing
 L, W a multiple of 16 and at most 8 global keys; anything else raises. On
 CPU tensors the wrappers take the plain versions (any float dtype, any
 shape the reference takes); on CUDA tensors they launch the kernels or
-raise. ``ABLATION_LAUNCHES`` and ``HEADPAIR_LAUNCHES`` count the launches.
+raise. The counters ``ablation.launches`` and ``headpair.launches``
+(``utils/profiling.py``) count the launches.
 """
 
 from __future__ import annotations
@@ -68,11 +69,8 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import count
 from ._build import aligned, ptr
-
-# Launches of the two kernels since the last reset.
-ABLATION_LAUNCHES = 0
-HEADPAIR_LAUNCHES = 0
 
 # the ``variant`` argument of each kernel's C interface
 ABLATION_VARIANTS = ("dots_only", "no_softmax", "no_mask", "band_softmax", "full")
@@ -206,7 +204,6 @@ def _check_bf16(*tensors):
 
 def _launch_ablation(q, kpad, vpad, keyloc, gk, gv, gvalid, variant, block_q, window,
                      num_heads):
-    global ABLATION_LAUNCHES
     from ._build import load_library
 
     code = _variant(variant, ABLATION_VARIANTS)
@@ -239,12 +236,11 @@ def _launch_ablation(q, kpad, vpad, keyloc, gk, gv, gvalid, variant, block_q, wi
                                 ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"band_ablation launch failed: CUDA error {err}")
-    ABLATION_LAUNCHES += 1
+    count("ablation.launches")
     return out
 
 
 def _launch_headpair(q, k, v, variant, block_q, window):
-    global HEADPAIR_LAUNCHES
     from ._build import load_library
 
     code = _variant(variant, HEADPAIR_VARIANTS)
@@ -265,7 +261,7 @@ def _launch_headpair(q, k, v, variant, block_q, window):
                                 window, block_q, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"band_headpair launch failed: CUDA error {err}")
-    HEADPAIR_LAUNCHES += 1
+    count("headpair.launches")
     return out
 
 

@@ -39,12 +39,9 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import count, spanned
 from ._build import DTYPE_CODES, aligned, ptr
 from .layernorm import SUPPORTED_WIDTHS
-
-# Launches of the forward and backward kernels since the last reset.
-LAUNCHES = 0
-BWD_LAUNCHES = 0
 
 
 def _sum4(a, b, c, d):
@@ -98,8 +95,8 @@ def _check(addends, gamma, other, name):
         raise ValueError("embed_layernorm inputs must share one CUDA device")
 
 
+@spanned("launch.kernel3")
 def _launch(a, b, c, d, gamma, beta, eps):
-    global LAUNCHES
     from ._build import load_library
 
     _check((a, b, c, d), gamma, a, "out")
@@ -117,12 +114,12 @@ def _launch(a, b, c, d, gamma, beta, eps):
                                       ctypes.c_float(eps), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"embed_layernorm_fwd launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    count("kernel3.launches")
     return out
 
 
+@spanned("launch.kernel4")
 def _launch_bwd(a, b, c, d, gamma, dout, eps):
-    global BWD_LAUNCHES
     from ._build import load_library
 
     _check((a, b, c, d), gamma, dout, "dout")
@@ -144,7 +141,7 @@ def _launch_bwd(a, b, c, d, gamma, dout, eps):
                                       M, H, ctypes.c_float(eps), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"embed_layernorm_bwd launch failed: CUDA error {err}")
-    BWD_LAUNCHES += 1
+    count("kernel4.launches")
     return dx, dgb[0], dgb[1]
 
 

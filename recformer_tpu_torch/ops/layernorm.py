@@ -34,10 +34,8 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import count, spanned
 from ._build import DTYPE_CODES, aligned, ptr
-
-# Launches of the backward kernel since the last reset.
-BWD_LAUNCHES = 0
 
 # Row widths the kernel is built for (``ROWLN_WIDTHS`` in csrc/row_reduce.cuh).
 SUPPORTED_WIDTHS = (64, 128, 256, 384, 512, 768, 1024)
@@ -95,8 +93,8 @@ def _check(x, gamma, dout):
         raise ValueError("layernorm_bwd inputs must share one CUDA device")
 
 
+@spanned("launch.kernel5")
 def _launch_bwd(x, gamma, dout, eps):
-    global BWD_LAUNCHES
     from ._build import load_library
 
     _check(x, gamma, dout)
@@ -117,7 +115,7 @@ def _launch_bwd(x, gamma, dout, eps):
                                 ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"layernorm_bwd launch failed: CUDA error {err}")
-    BWD_LAUNCHES += 1
+    count("kernel5.launches")
     return dx, dgb[0], dgb[1]
 
 

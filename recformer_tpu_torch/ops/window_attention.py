@@ -41,9 +41,11 @@ checks and the small test shapes, where the tensor cores' tiles do not fit.
 The choice is made once, in C (``band_attention_{fwd,bwd}_path``), and the
 wrapper copies the operands to 16-byte aligned memory for the tensor-core
 kernels (a misaligned operand is an error there, never a silent switch to
-the CUDA-core kernel). ``TC_LAUNCHES`` and ``BWD_TC_LAUNCHES`` count the
-tensor-core launches. ``PERF.md``
-has the measured times beside the bound.
+the CUDA-core kernel). The counters ``kernel1.launches``,
+``kernel2.launches``, ``kernel1.tensor_core`` and ``kernel2.tensor_core``
+(``utils/profiling.py``) count the launches and those on the tensor cores;
+the launches are the spans ``launch.kernel1`` and ``launch.kernel2``.
+``PERF.md`` has the measured times beside the bound.
 
 Dropout is one exact function of absolute coordinates,
 ``keep(seed, b, h, i, c) = philox4x32_10((c >> 2, i, h, b), (seed, 0))[c & 3]
@@ -67,18 +69,10 @@ import functools
 
 import torch
 
+from ..utils.profiling import count, spanned
 from ._build import DTYPE_CODES as _DTYPE_CODES
 from ._build import ptr as _ptr
 from .attention import _batch_index, _global_rows, attention_scale, global_prefix_indices
-
-# Launches of the CUDA kernels since the last reset: one per forward and one
-# per backward ``band_attention`` call on CUDA tensors; TC_LAUNCHES and
-# BWD_TC_LAUNCHES count the launches that took the tensor-core kernels (the
-# rest of LAUNCHES and BWD_LAUNCHES took the CUDA-core ones).
-LAUNCHES = 0
-TC_LAUNCHES = 0
-BWD_LAUNCHES = 0
-BWD_TC_LAUNCHES = 0
 
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
 _MASK32 = 0xFFFFFFFF
@@ -319,9 +313,9 @@ def _dropout_args(rate: float, seed: int):
     return [1, int(seed) & _MASK32, dropout_threshold(rate), ctypes.c_float(_drop_scale(rate))]
 
 
+@spanned("launch.kernel1")
 def _launch(q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, num_heads, window,
             fuse_epilogue, dropout_rate=0.0, seed=0):
-    global LAUNCHES, TC_LAUNCHES
     from ._build import aligned, load_library
 
     (q2, k2, v2, gk, gv, gout), (keyloc, gvalid, mrow) = _check(
@@ -346,8 +340,8 @@ def _launch(q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, num_heads, window,
             *_dropout_args(dropout_rate, seed), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"band_attention_fwd launch failed: CUDA error {err}")
-    LAUNCHES += 1
-    TC_LAUNCHES += tensor_cores
+    count("kernel1.launches")
+    count("kernel1.tensor_core", int(tensor_cores))
     return out
 
 
@@ -364,9 +358,9 @@ def bwd_query_tile(head_dim: int, num_globals: int, window: int) -> int:
     return tile
 
 
+@spanned("launch.kernel2")
 def _launch_bwd(q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, dout, num_heads, window,
                 fuse_epilogue, dropout_rate=0.0, seed=0):
-    global BWD_LAUNCHES, BWD_TC_LAUNCHES
     from ._build import aligned, load_library
 
     (q2, k2, v2, gk, gv, gout), (keyloc, gvalid, mrow) = _check(
@@ -400,8 +394,8 @@ def _launch_bwd(q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, dout, num_heads,
             *_dropout_args(dropout_rate, seed), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"band_attention_bwd launch failed: CUDA error {err}")
-    BWD_LAUNCHES += 1
-    BWD_TC_LAUNCHES += tensor_cores
+    count("kernel2.launches")
+    count("kernel2.tensor_core", int(tensor_cores))
     return dq, dk, dv, dg[0], dg[1], dg[2]
 
 

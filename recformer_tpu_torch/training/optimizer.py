@@ -53,6 +53,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..utils.profiling import spanned
+
 
 def linear_warmup_linear_decay(warmup_steps: int, total_steps: int) -> Callable[[int], float]:
     """The schedule's factor of the base rate at update ``step``; the decay
@@ -215,6 +217,7 @@ class AdamWSchedule:
         split[list(self._tp_dims)] = True
         return torch.sqrt(sq[~split].sum() + psum(sq[split].sum(), self.mesh.model_group))
 
+    @spanned("optimizer")
     def step(self) -> bool:
         grads = self._grads()
         if self.k > 1:

@@ -48,6 +48,7 @@ from ..data.device_pipeline import assemble_for_config, make_finetune_batch, mak
 from ..models.heads import similarity_scores
 from ..parallel.catalog import sharded_full_softmax_loss, sharded_take
 from ..parallel.collectives import all_reduce_, psum
+from ..utils.profiling import span
 from ..utils.rng import StepRNG, fold_in
 from . import losses
 from .metrics import MAX_VAL, rank_from_scores
@@ -113,15 +114,19 @@ def pretrain_backward(config: RecformerConfig, model, batch_a, batch_b, rng, mes
     and its backward; under a mesh, the gradients reduced over the data
     group (summed in ``'full'`` mode, averaged in ``'local'``). Returns the
     detached metrics."""
-    out = model(batch_a, batch_b, deterministic=False, rng=rng)
-    if mesh is None:
-        loss, metrics = pretrain_loss(config, out, batch_a, batch_b)
-        loss.backward()
-        return {k: v.detach() for k, v in metrics.items()}
     mode = config.contrastive_gradient
-    loss, metrics = pretrain_loss(config, out, batch_a, batch_b, mesh.data_group, mode)
-    loss.backward()
-    all_reduce_(_trained(model), mesh.data_group, mean=(mode == "local"))
+    with span("forward"):
+        out = model(batch_a, batch_b, deterministic=False, rng=rng)
+        if mesh is None:
+            loss, metrics = pretrain_loss(config, out, batch_a, batch_b)
+        else:
+            loss, metrics = pretrain_loss(config, out, batch_a, batch_b, mesh.data_group, mode)
+    with span("backward"):
+        loss.backward()
+        if mesh is not None:
+            all_reduce_(_trained(model), mesh.data_group, mean=(mode == "local"))
+    if mesh is None:
+        return {k: v.detach() for k, v in metrics.items()}
     metrics = {k: v.detach() for k, v in metrics.items()}
     if mode == "local":
         # the counts are over the gathered batch already: the same on every rank
@@ -147,18 +152,20 @@ def model_axis_backward(config: RecformerConfig, model, out, batch_a, batch_b, m
       stage: ``parallel.pipeline.owned_by_stage``); the others are zeroed.
 
     Returns the detached metrics (the global values)."""
-    loss, metrics = pretrain_loss(config, out, batch_a, batch_b, mesh.data_group)
-    (loss / mesh.n_model if own is None else loss).backward()
-    grads = []
-    for name, p in model.named_parameters():
-        if not p.requires_grad:
-            continue
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-        elif own is not None and not own(name):
-            p.grad.zero_()
-        grads.append(p.grad)
-    all_reduce_(grads, None)
+    with span("forward"):
+        loss, metrics = pretrain_loss(config, out, batch_a, batch_b, mesh.data_group)
+    with span("backward"):
+        (loss / mesh.n_model if own is None else loss).backward()
+        grads = []
+        for name, p in model.named_parameters():
+            if not p.requires_grad:
+                continue
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            elif own is not None and not own(name):
+                p.grad.zero_()
+            grads.append(p.grad)
+        all_reduce_(grads, None)
     return {k: v.detach() for k, v in metrics.items()}
 
 
@@ -248,9 +255,11 @@ def make_finetune_step(config: RecformerConfig, model, optimizer, mesh=None,
         rng = StepRNG(fold_in(seed, optimizer.micro_steps), item_ids.device)
         batch, labels = make_finetune_batch(rng.device, table, item_ids, seq_lens, config)
         if mesh is None:
-            pooled = model(batch, deterministic=False, rng=rng)
-            loss = finetune_loss(config, pooled, item_embeddings, labels, rng.device)
-            loss.backward()
+            with span("forward"):
+                pooled = model(batch, deterministic=False, rng=rng)
+                loss = finetune_loss(config, pooled, item_embeddings, labels, rng.device)
+            with span("backward"):
+                loss.backward()
             optimizer.step()
             return {"loss": loss.detach()}
         n_neg = config.finetune_negative_sample_size
@@ -260,16 +269,19 @@ def make_finetune_step(config: RecformerConfig, model, optimizer, mesh=None,
                                                 generator=rng.device, device=labels.device), mesh)
         batch, labels = take_rows(batch, mesh), take_rows(labels, mesh)
         drop = StepRNG(fold_in(rng.seed, mesh.data_rank), item_ids.device)
-        pooled = model(batch, deterministic=False, rng=drop)
-        if negatives is None:
-            loss = sharded_full_softmax_loss(pooled, item_embeddings, labels, config.temp,
-                                             n_items, mesh.model_group)
-        else:
-            candidates = torch.cat([labels.long()[:, None], negatives.long()], dim=1)
-            loss = losses.sampled_softmax_from_candidates(
-                pooled, sharded_take(item_embeddings, candidates, mesh.model_group), config.temp)
-        (loss / mesh.n_data).backward()
-        all_reduce_(_trained(model), mesh.data_group)
+        with span("forward"):
+            pooled = model(batch, deterministic=False, rng=drop)
+            if negatives is None:
+                loss = sharded_full_softmax_loss(pooled, item_embeddings, labels, config.temp,
+                                                 n_items, mesh.model_group)
+            else:
+                candidates = torch.cat([labels.long()[:, None], negatives.long()], dim=1)
+                loss = losses.sampled_softmax_from_candidates(
+                    pooled, sharded_take(item_embeddings, candidates, mesh.model_group),
+                    config.temp)
+        with span("backward"):
+            (loss / mesh.n_data).backward()
+            all_reduce_(_trained(model), mesh.data_group)
         optimizer.step()
         return {"loss": psum(loss.detach(), mesh.data_group) / mesh.n_data}
 
@@ -340,8 +352,10 @@ def make_fraud_train_step(config: RecformerConfig, model, optimizer):
     def step(seed, table, item_ids, seq_lens, labels, valid) -> Dict[str, torch.Tensor]:
         rng = StepRNG(fold_in(seed, optimizer.micro_steps), item_ids.device)
         batch = assemble_for_config(table, item_ids, seq_lens, config)
-        loss = fraud_loss(config, model(batch, deterministic=False, rng=rng), labels, valid)
-        loss.backward()
+        with span("forward"):
+            loss = fraud_loss(config, model(batch, deterministic=False, rng=rng), labels, valid)
+        with span("backward"):
+            loss.backward()
         optimizer.step()
         return {"loss": loss.detach()}
 
