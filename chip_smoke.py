@@ -65,6 +65,12 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
 8. serving: Recformer-base (random weights from ``--seed``) encodes a
    synthetic 10,000-item catalog, ranks it for 256 users, and the serve CLI
    answers a few users;
+8b. serve_graph: the backbone's CUDA graphs for serving at Recformer-base,
+   a rank request's (32, 1024) under ``no_grad`` and an encode chunk's
+   (256, 128) under ``inference_mode``: the eager, capturing and replayed
+   calls bitwise equal to ``forward_eager``, kernel 1's launches 12 a call
+   (a replay adds what its capture recorded), a weight updated in place
+   seen by the next replay, eager and replayed calls host-timed;
 9. encode_embed_kernel: 2,048 items encoded under ``embed_ln_impl='pallas'``,
    pooled cosine against the default path > 0.999;
 9b. offline_clis: ``cli.encode_items`` (512 items) and ``cli.evaluate_seq``
@@ -1338,6 +1344,103 @@ def run_serving(seed, card):
          forwards=serve_forwards, first=rows[0])
     return {"band_attention_fwd": enc_launches + eval_launches + serve_launches,
             "band_attention_fwd_tc": enc_tc + eval_tc + serve_tc}
+
+
+def counter_deltas(before: dict, after: dict) -> dict:
+    return {k: after.get(k, 0) - before.get(k, 0) for k in sorted(set(before) | set(after))
+            if after.get(k, 0) != before.get(k, 0)}
+
+
+def run_serve_graph(seed, card):
+    """The backbone's CUDA graphs for serving (``models/serve_graph.py``) at
+    Recformer-base on the benchmark's serving shapes: a rank request's
+    (32, 1024) under ``no_grad`` and an encode chunk's (256, 128) under
+    ``inference_mode``. The eager call, the capturing call and two replays
+    (the second on other inputs) each bitwise equal to ``forward_eager`` on
+    the same inputs, kept through the later replays; kernel 1's launches 12
+    a call, on the tensor cores, the replays' among them; a weight updated
+    in place seen by the next replay; eager and replayed calls host-timed to
+    the device's end (median of 10)."""
+    from recformer_tpu_torch.cli.common import init_model_params
+    from recformer_tpu_torch.config import RecformerConfig
+    from recformer_tpu_torch.data.device_pipeline import assemble_for_config
+    from recformer_tpu_torch.models.heads import RecformerForSeqRec
+    from recformer_tpu_torch.utils import profiling
+
+    dev = torch.device("cuda")
+    cfg = RecformerConfig.base()
+    n_layers, n_items = cfg.num_hidden_layers, 5_000
+    backbone = init_model_params(RecformerForSeqRec(cfg), cfg, device="cuda",
+                                 seed=seed).longformer
+    table = {k: torch.from_numpy(v).to(dev)
+             for k, v in synthetic_table(cfg, n_items, seed).items()}
+    rng = np.random.default_rng(seed + 7)
+    keys = ("input_ids", "attention_mask", "global_attention_mask", "token_type_ids",
+            "item_position_ids")
+
+    def batch(B, L):
+        if L == cfg.item_seq_len:  # one item a sequence, as the catalog's
+            ids, lens = rng.integers(0, n_items, size=(B, 1)), np.ones(B)
+        else:
+            ids, lens = rng.integers(0, n_items, size=(B, 50)), rng.integers(5, 41, size=B)
+        b = assemble_for_config(table, torch.from_numpy(ids.astype(np.int32)).to(dev),
+                                torch.from_numpy(lens.astype(np.int32)).to(dev), cfg, out_len=L)
+        return [b[k] for k in keys]
+
+    def same(got, want) -> bool:
+        return all(torch.equal(g, w) for g, w in zip(got, want))
+
+    def ms(fn) -> float:
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    reset_counts()
+    per_call = {"kernel1.launches": n_layers, "kernel1.tensor_core": n_layers}
+    expected = [{**per_call, "serve_graph.eager": 1}, {**per_call, "serve_graph.captures": 1},
+                {**per_call, "serve_graph.replays": 1}, {**per_call, "serve_graph.replays": 1}]
+    for name, (B, L), mode in (("rank", (32, cfg.max_token_num), torch.no_grad),
+                               ("encode", (256, cfg.item_seq_len), torch.inference_mode)):
+        a, b = batch(B, L), batch(B, L)
+        with mode():
+            want_a, want_b = backbone.forward_eager(*a), backbone.forward_eager(*b)
+            got, deltas = [], []
+            for inputs in (a, a, a, b):  # eager, capture, replay, replay
+                before = profiling.counters()
+                got.append(backbone(*inputs))
+                deltas.append(counter_deltas(before, profiling.counters()))
+            torch.cuda.synchronize()
+            kept = [same(g, w) for g, w in zip(got, (want_a, want_a, want_a, want_b))]
+            w = backbone.encoder.layer[5].intermediate.dense.weight
+            saved = w.clone()
+            w.mul_(1.01)
+            updated = backbone(*a)
+            seen = same(updated, backbone.forward_eager(*a)) and not same(updated, want_a)
+            w.copy_(saved)
+            restored = same(backbone(*a), want_a)
+            eager_ms = ms(lambda: backbone.forward_eager(*a))
+            graph_ms = ms(lambda: backbone(*a))
+        emit("serve_graph", cell=name, batch=B, seq_len=L, mode=mode.__name__,
+             bitwise_equal=kept, counts_per_call=deltas, update_seen=seen, restored=restored,
+             graphs=len(backbone.serve_graphs), eager_ms=eager_ms, graph_ms=graph_ms,
+             speedup=eager_ms / graph_ms, card=card)
+        if not all(kept):
+            raise AssertionError(f"serve_graph {name}: graphed forward not bitwise equal to "
+                                 f"the eager one: {kept}")
+        if deltas != expected:
+            raise AssertionError(f"serve_graph {name}: counts a call {deltas}, "
+                                 f"expected {expected}")
+        if not (seen and restored):
+            raise AssertionError(f"serve_graph {name}: a weight updated in place was not "
+                                 f"seen by the next replay ({seen}, {restored})")
+    counts = read_counts()
+    return {"band_attention_fwd": counts["band_attention_fwd"],
+            "band_attention_fwd_tc": counts["band_attention_fwd_tc"]}
 
 
 def run_offline_clis(seed, card):
@@ -4401,6 +4504,7 @@ def main(argv=None) -> int:
     probe_sass = probe_instructions(ptxas.result())
     probe_times, probe_counts = time_probes(card)
     phases = {"probe_time": probe_counts, "serving": run_serving(args.seed, card),
+              "serve_graph": run_serve_graph(args.seed, card),
               "encode_embed_kernel": run_encode_embed_kernel(args.seed, card),
               "offline_clis": run_offline_clis(args.seed, card)}
     phases["pretrain_step"], default_rates = run_pretrain_step(args.seed, card)

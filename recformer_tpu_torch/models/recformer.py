@@ -2,7 +2,10 @@
 
 Counterpart of ``recformer_tpu/models/recformer.py``. Batches are padded to
 a static length that is a multiple of the attention window; the {0,1} x
-{0,1} masks merge into {0 none, 1 local, 2 global}.
+{0,1} masks merge into {0 none, 1 local, 2 global}. A call without
+gradients and without dropout (serving, evaluation, catalog encoding) goes
+through the model's :class:`~.serve_graph.ServeGraphs`, which replays a CUDA
+graph of the same forward where the call allows it.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from ..config import RecformerConfig
 from ..utils.profiling import spanned
 from .embeddings import RecformerEmbeddings
 from .encoder import LongformerEncoder
+from .serve_graph import ServeGraphs
 
 
 def merge_attention_masks(attention_mask: torch.Tensor, global_attention_mask: torch.Tensor):
@@ -42,16 +46,29 @@ class RecformerModel(nn.Module):
         self.embeddings = RecformerEmbeddings(config)
         self.encoder = LongformerEncoder(config)
         self.pooler = RecformerPooler(config)
+        self.serve_graphs = ServeGraphs()
 
     @spanned("forward.encoder")
     def forward(self, input_ids, attention_mask, global_attention_mask, token_type_ids,
                 item_position_ids, position_ids=None, deterministic: bool = True, rng=None):
-        """``deterministic=False`` applies dropout, drawn from ``rng`` (a
-        :class:`~recformer_tpu_torch.utils.rng.StepRNG`)."""
-        if deterministic:
-            rng = None
-        elif rng is None:
-            raise ValueError("deterministic=False needs an rng (utils.rng.StepRNG)")
+        """(hidden, pooled). ``deterministic=False`` applies dropout, drawn
+        from ``rng`` (a :class:`~recformer_tpu_torch.utils.rng.StepRNG`).
+        With gradients off and no dropout, :attr:`serve_graphs` runs
+        :meth:`forward_eager` or replays a CUDA graph of it."""
+        inputs = (input_ids, attention_mask, global_attention_mask, token_type_ids,
+                  item_position_ids, position_ids)
+        if not deterministic:
+            if rng is None:
+                raise ValueError("deterministic=False needs an rng (utils.rng.StepRNG)")
+            return self.forward_eager(*inputs, rng=rng)
+        if torch.is_grad_enabled():
+            return self.forward_eager(*inputs)
+        return self.serve_graphs(self, self.forward_eager, inputs)
+
+    def forward_eager(self, input_ids, attention_mask, global_attention_mask, token_type_ids,
+                      item_position_ids, position_ids=None, rng=None):
+        """The forward, launched from Python op by op; dropout when ``rng``
+        is given."""
         mask = merge_attention_masks(attention_mask, global_attention_mask)
         x = self.embeddings(input_ids, token_type_ids, item_position_ids, position_ids, rng)
         x = self.encoder(x, mask, rng)

@@ -48,8 +48,10 @@ def _einsum32(eq: str, *xs: torch.Tensor) -> torch.Tensor:
 
 
 def attention_scale(head_dim: int, dtype: torch.dtype, device) -> torch.Tensor:
-    """``1/sqrt(D)`` computed in float32, then cast to the compute type."""
-    d = torch.tensor(float(head_dim), dtype=torch.float32, device=device)
+    """``1/sqrt(D)`` computed in float32, then cast to the compute type. D is
+    filled in on the device, not copied from the host: a copy from pageable
+    host memory synchronises the stream, which a CUDA graph cannot capture."""
+    d = torch.full((), float(head_dim), dtype=torch.float32, device=device)
     return (1.0 / torch.sqrt(d)).to(dtype)
 
 

@@ -29,7 +29,10 @@ model call through the loss), ``forward.encoder`` (the backbone),
 Counters (:func:`count`) are host integers and always on: the kernels'
 launches, ``kernel<N>.launches``, ``kernel1.tensor_core`` and
 ``kernel2.tensor_core`` (those on the tensor cores), ``ablation.launches``
-and ``headpair.launches``.
+and ``headpair.launches``; the backbone's CUDA graphs for serving
+(``models/serve_graph.py``), ``serve_graph.captures``,
+``serve_graph.replays`` and ``serve_graph.eager``. A replayed graph adds
+the launch counts its capture recorded.
 """
 
 from __future__ import annotations
