@@ -255,6 +255,21 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     --microbatches 2`` (a SIGTERM on rank 1 alone after step 2, then
     ``--resume``) on pretrain_cli's corpus, each ``best.pt`` whole and read
     by a one-rank ``cli.finetune`` for one epoch a stage.
+37. modernbert: ModernBERT-large at its published widths
+    (``RecformerConfig.modernbert_large()``): kernels 1-2 at W 128 with no
+    global column against their plain versions (float32 and bf16, dropout 0
+    and 0.1; the forward on the tensor cores in bf16, the backward on its
+    CUDA-core passes; bitwise equal on a second call); kernel 1 at W 128 and
+    the global layers' attention timed at the rank cell's (32, 8192) beside
+    their bounds; one pretraining micro-step of 2 users (views (4, 8192) and
+    (4, 128), remat ``full``) in float32 against the plain float32 reference
+    (``recformer_tpu_torch/reference/modernbert.py``: loss within 1e-4, the
+    worst gradient leaf within 1e-2) and in bf16 (its gaps reported), with
+    their launches counted; the rank forward at (32, 8192) eager, captured
+    and replayed, each bitwise equal to ``forward_eager``, each call 18
+    kernel-1 launches on the tensor cores and 10 global-attention launches
+    on a fused backend. ``python3 chip_smoke.py --only modernbert`` builds,
+    runs kernel_check and kernel_time, then this phase (no result line).
 
 Launch counts, set to 0 just before each path and read just after, show that
 the paths ran the kernels (each kernel on its path at least once; the
@@ -375,9 +390,14 @@ def rel_err(out, ref) -> float:
 
 
 def tensor_core_shape(dtype, D, window, G) -> bool:
-    """Whether both kernels take their tensor-core versions (the C entry
-    points' condition)."""
-    return dtype == torch.bfloat16 and D == 64 and window == 64 and G <= 8
+    """Whether the backward takes its tensor-core passes (the C entry
+    point's condition)."""
+    return dtype == torch.bfloat16 and D == 64 and window == 64 and 1 <= G <= 8
+
+
+def fwd_tensor_core_shape(dtype, D, window, G) -> bool:
+    """Whether the forward takes its tensor-core kernel (W 64 or 128)."""
+    return dtype == torch.bfloat16 and D == 64 and window in (64, 128) and G <= 8
 
 
 def check_case(name, gen, dtype, fuse=True, **kw):
@@ -394,8 +414,9 @@ def check_case(name, gen, dtype, fuse=True, **kw):
     B, L, H, D, window = (kw.pop(x) for x in ("B", "L", "H", "D", "window"))
     ops = band_case(gen, B, L, H, D, window, dtype, **kw)
     common = dict(num_heads=H, window=window, fuse_epilogue=fuse)
-    want_path = ("tensor_core" if tensor_core_shape(dtype, D, window, ops["gk"].shape[1])
-                 else "cuda_core")
+    G = ops["gk"].shape[1]
+    want_fwd = "tensor_core" if fwd_tensor_core_shape(dtype, D, window, G) else "cuda_core"
+    want_path = "tensor_core" if tensor_core_shape(dtype, D, window, G) else "cuda_core"
     fwd_err = bwd_err = 0.0
     for rate in (0.0, 0.1):
         drop = dict(dropout_rate=rate, seed=1234 + L)
@@ -407,7 +428,7 @@ def check_case(name, gen, dtype, fuse=True, **kw):
         path = "tensor_core" if tc == 1 else "cuda_core"
         ref = window_attention_plain(**ops, **common, **drop)
         err = float((out.float() - ref.float()).abs().max())
-        ok = bool(torch.isfinite(out.float()).all()) and err <= TOL[dtype] and path == want_path
+        ok = bool(torch.isfinite(out.float()).all()) and err <= TOL[dtype] and path == want_fwd
         emit("kernel_check", kernel="band_attention_fwd", case=name,
              dtype=str(dtype).removeprefix("torch."), shape=[B, L, H, D], window=window,
              fused_epilogue=fuse, dropout=rate, path=path, max_abs_err=err, tol_abs=TOL[dtype],
@@ -1441,6 +1462,252 @@ def run_serve_graph(seed, card):
     counts = read_counts()
     return {"band_attention_fwd": counts["band_attention_fwd"],
             "band_attention_fwd_tc": counts["band_attention_fwd_tc"]}
+
+
+MB_KERNEL_CASES = {  # kernel 1-2 at ModernBERT's local layers: W 128, no global column
+    "w128_g0_ragged": dict(B=2, L=1000, H=4, lengths=[1000, 613]),
+    "w128_g0_padding_tiles": dict(B=2, L=2048, H=16, lengths=[2048, 300]),
+    "w128_g0_L8192": dict(B=1, L=8192, H=16, lengths=[5400]),
+}
+
+
+def mb_band_case(gen, B, L, H, lengths, dtype, D=64):
+    """Kernel 1-2's operands with no global column (G = 0): the padding rows
+    are mask 0, the rest 1."""
+    dev = torch.device("cuda")
+    q2, k2, v2 = ((torch.randn(B, L, H * D, generator=gen, device=dev) * 0.5).to(dtype)
+                  for _ in range(3))
+    keyloc = (torch.arange(L, device=dev)[None, :]
+              < torch.tensor(lengths, device=dev)[:, None]).to(torch.int32)
+    none = q2.new_zeros((B, 0, H * D))
+    return dict(q2=q2, k2=k2, v2=v2, keyloc=keyloc, gk=none, gv=none, gvalid=keyloc[:, :0],
+                mrow=keyloc, gout=none)
+
+
+def mb_check_kernels(gen):
+    """Kernels 1 and 2 at W 128, G 0 against their plain versions (float32
+    and bf16, dropout 0 and 0.1): the forward on the tensor cores in bf16,
+    the backward on its CUDA-core passes; each bitwise equal on a second
+    call. Returns the largest errors."""
+    from recformer_tpu_torch.ops.window_attention import (band_attention, band_attention_bwd,
+                                                          window_attention_bwd_plain,
+                                                          window_attention_plain)
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, kw in MB_KERNEL_CASES.items():
+            ops = mb_band_case(gen, dtype=dtype, **kw)
+            common = dict(num_heads=kw["H"], window=128, fuse_epilogue=True)
+            for rate in (0.0, 0.1):
+                drop = dict(dropout_rate=rate, seed=99 + kw["L"])
+                before = read_counts()
+                with torch.no_grad():
+                    out = band_attention(**ops, **common, **drop)
+                    again = band_attention(**ops, **common, **drop)
+                dout = (torch.randn(out.shape, generator=gen, device="cuda") * 0.5).to(dtype)
+                got = band_attention_bwd(**ops, dout=dout, **common, **drop)
+                got2 = band_attention_bwd(**ops, dout=dout, **common, **drop)
+                torch.cuda.synchronize()
+                after = read_counts()
+                fwd_tc = after["band_attention_fwd_tc"] - before["band_attention_fwd_tc"]
+                bwd_tc = after["band_attention_bwd_tc"] - before["band_attention_bwd_tc"]
+                ref = window_attention_plain(**ops, **common, **drop)
+                want = window_attention_bwd_plain(**ops, dout=dout, **common, **drop)
+                fwd_err = float((out.float() - ref.float()).abs().max())
+                errs = {n: rel_err(g, w) for n, g, w in zip(BWD_OUTPUTS[:3], got, want)}
+                stable = torch.equal(out, again) and all(
+                    torch.equal(a, b) for a, b in zip(got[:3], got2[:3]))
+                want_tc = 2 if dtype == torch.bfloat16 else 0
+                ok = (fwd_err <= TOL[dtype] and max(errs.values()) <= BWD_TOL[dtype] and stable
+                      and fwd_tc == want_tc and bwd_tc == 0
+                      and all(tuple(g.shape) == (kw["B"], 0, kw["H"] * 64) for g in got[3:]))
+                emit("modernbert_kernel_check", case=name, dtype=str(dtype).removeprefix("torch."),
+                     shape=[kw["B"], kw["L"], kw["H"], 64], window=128, globals=0, dropout=rate,
+                     fwd_path="tensor_core" if fwd_tc else "cuda_core", fwd_max_abs_err=fwd_err,
+                     bwd_path="tensor_core" if bwd_tc else "cuda_core", bwd_rel_err=errs,
+                     bitwise_stable=stable, ok=ok)
+                if not ok:
+                    raise AssertionError(f"kernels 1-2 at W 128, G 0 disagree with their plain "
+                                         f"versions: {name} {dtype} rate {rate}")
+                key = str(dtype).removeprefix("torch.")
+                worst[key] = max(worst.get(key, 0.0), fwd_err, max(errs.values()))
+    return worst
+
+
+def mb_batch(cfg, gen, lengths, L, n_masked=0):
+    """A batch of random tokens at (len(lengths), L): ``<s>`` first, types 1
+    and 2, item positions, padding past each length; with ``n_masked``, as
+    many masked positions a row (its MLM ids, positions and labels) and the
+    reference's (batch, corrupted, masked) view."""
+    dev = torch.device("cuda")
+    B = len(lengths)
+    valid = torch.arange(L, device=dev)[None, :] < torch.tensor(lengths, device=dev)[:, None]
+    ids = torch.randint(4, cfg.vocab_size - 1, (B, L), generator=gen, device=dev)
+    ids[:, 0] = cfg.bos_token_id
+    ids = torch.where(valid, ids, cfg.pad_token_id)
+    typ = torch.where(valid, torch.randint(1, 3, (B, L), generator=gen, device=dev), 3)
+    typ[:, 0] = 0
+    pos = (torch.arange(L, device=dev)[None, :] // 27 + 1).clamp_max(cfg.max_item_embeddings - 2)
+    item = torch.where(valid, pos, cfg.max_item_embeddings - 1)
+    item[:, 0] = 0
+    glob = torch.zeros(B, L, dtype=torch.int64, device=dev)
+    glob[:, 0] = 1
+    batch = {"input_ids": ids, "attention_mask": valid.long(), "global_attention_mask": glob,
+             "token_type_ids": typ, "item_position_ids": item}
+    if not n_masked:
+        return batch, None
+    at = torch.stack([1 + torch.randperm(int(n) - 1, generator=gen, device=dev)[:n_masked]
+                      for n in lengths])
+    masked = torch.zeros(B, L, dtype=torch.bool, device=dev).scatter_(1, at, True)
+    corrupted = torch.where(masked, cfg.mask_token_id, ids)
+    full = dict(batch, mlm_input_ids=corrupted, mlm_positions=at,
+                mlm_labels=torch.gather(ids, 1, at))
+    return full, (batch, corrupted, masked)
+
+
+def leaf_gap(grads, ref) -> float:
+    """The worst leaf's ||g - r|| / max(||r||, the median leaf's ||r||)."""
+    norms = {n: float(r.norm()) for n, r in ref.items()}
+    med = float(np.median(list(norms.values())))
+    return max(float((grads[n] - r).norm()) / max(norms[n], med) for n, r in ref.items())
+
+
+def run_modernbert(seed, card):
+    """ModernBERT-large at its published widths (``RecformerConfig.modernbert_large()``):
+    kernels 1-2 at W 128 with no global column against their plain versions;
+    kernel 1 (W 128) and the global op timed at the rank cell's (32, 8192);
+    one pretraining micro-step of 2 users (views (4, 8192) and (4, 128),
+    remat ``full``) in float32 against the plain float32 reference (the loss
+    and the worst gradient leaf; TF32 off), and in bf16 (its gaps reported,
+    its launches counted: kernel 2 on its CUDA-core passes); the rank
+    forward at (32, 8192) eager, captured and replayed, the replay bitwise
+    equal to ``forward_eager``, each call 18 kernel-1 launches on the tensor
+    cores and 10 global-attention launches on a fused backend."""
+    from recformer_tpu_torch.cli.common import init_model_params
+    from recformer_tpu_torch.config import RecformerConfig
+    from recformer_tpu_torch.models.heads import RecformerForPretraining, RecformerForSeqRec
+    from recformer_tpu_torch.ops.full_attention import full_attention
+    from recformer_tpu_torch.ops.window_attention import band_attention
+    from recformer_tpu_torch.reference import modernbert as ref
+    from recformer_tpu_torch.training.steps import pretrain_loss
+    from recformer_tpu_torch.utils import profiling
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+    out = {"kernel_errors": mb_check_kernels(gen)}
+    cfg = RecformerConfig.modernbert_large()
+    n_global = sum(cfg.is_global_layer(i) for i in range(cfg.num_hidden_layers))
+    n_local = cfg.num_hidden_layers - n_global
+
+    # kernel 1 at W 128 and the global op at the rank cell's shape
+    B, L, H, D = 32, cfg.max_token_num, cfg.num_attention_heads, cfg.head_dim
+    lengths = [int(x) for x in np.random.default_rng(seed).integers(2700, L + 1, size=B)]
+    ops = mb_band_case(gen, B, L, H, lengths, torch.bfloat16)
+    n = np.asarray(lengths, np.int64)
+    d = np.minimum(64, n - 1)
+    pairs = int((n + 2 * (d * n - d * (d + 1) // 2)).sum())
+    with torch.no_grad():
+        def k1():
+            return band_attention(**ops, num_heads=H, window=128, fuse_epilogue=True)
+
+        k1_ms, k1_host = graph_launch_ms(k1, n=5), host_ms(k1, n=5)
+        k1_bound, k1_by = bound(float((2 * H * D * 4 * n + 8 * n).sum()), 4 * H * D * pairs,
+                                torch.bfloat16)
+        q, k, v = (ops[x].view(B, L, H, D) for x in ("q2", "k2", "v2"))
+        def g():
+            return full_attention(q, k, v, ops["keyloc"])
+
+        g_ms, g_host = graph_launch_ms(g, n=3), host_ms(g, n=3)
+        g_bound, g_by = bound(float((2 * H * D * 4 * n + n).sum()),
+                              4.0 * H * D * float((n * n).sum()), torch.bfloat16)
+    emit("modernbert_kernel_time", shape=[B, L, H, D], lengths=lengths,
+         kernel1_w128_ms=k1_ms, kernel1_w128_host_ms=k1_host, kernel1_bound_ms=k1_bound,
+         kernel1_bound_by=k1_by, kernel1_share_of_bound=k1_bound / k1_ms,
+         global_attn_ms=g_ms, global_attn_host_ms=g_host, global_attn_bound_ms=g_bound,
+         global_attn_bound_by=g_by, global_attn_share_of_bound=g_bound / g_ms, card=card)
+    out.update(kernel1_w128_ms=k1_ms, global_attn_ms=g_ms)
+    del ops, q, k, v
+
+    # one pretraining micro-step against the reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = cfg.replace(dtype="float32", remat=True)
+    model = init_model_params(RecformerForPretraining(cfg32), cfg32, device="cuda", seed=seed)
+    state = {n: p.detach().clone() for n, p in model.named_parameters()}
+    a, view_a = mb_batch(cfg, gen, [8192, 5000], L, n_masked=64)
+    b, view_b = mb_batch(cfg, gen, [128, 61], cfg.item_seq_len, n_masked=6)
+    P = {n: t.clone().requires_grad_(True) for n, t in state.items()}
+    want = ref.pretrain_loss(P, cfg32, [view_a, view_b])
+    want.backward()
+    ref_grads = {n: t.grad for n, t in P.items()}
+    del P
+    gaps = {}
+    for name, c in (("float32", cfg32), ("bfloat16", cfg.replace(remat=True))):
+        m = model if c is cfg32 else init_model_params(RecformerForPretraining(c), c,
+                                                       device="cuda", seed=seed)
+        m.load_state_dict(state)
+        m.train()
+        reset_counts()
+        before = profiling.counters()
+        loss, _ = pretrain_loss(c, m(a, b), a, b)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = counter_deltas(before, profiling.counters())
+        grads = {n: p.grad for n, p in m.named_parameters()}
+        gaps[name] = {"loss": float(loss), "ref_loss": float(want),
+                      "loss_gap": abs(float(loss) - float(want)) / abs(float(want)),
+                      "grad_gap": leaf_gap(grads, ref_grads),
+                      "finite": all(bool(torch.isfinite(t).all()) for t in grads.values())}
+        # two towers, each layer's forward run twice under remat 'full'
+        expected = {"kernel1.launches": 4 * n_local, "kernel2.launches": 2 * n_local,
+                    "global_attn.launches": 4 * n_global, "global_attn.fused": 4 * n_global,
+                    "kernel1.tensor_core": 4 * n_local if name == "bfloat16" else 0}
+        got = {k: counts.get(k, 0) for k in expected}
+        gaps[name]["launches"] = got
+        emit("modernbert_pretrain_step", dtype=name, views=[[4, L], [4, cfg.item_seq_len]],
+             remat="full", **gaps[name], expected_launches=expected, card=card)
+        if not gaps[name]["finite"] or got != expected:
+            raise AssertionError(f"modernbert pretrain step {name}: {gaps[name]}, "
+                                 f"expected launches {expected}")
+        del m, grads
+        model = None
+        torch.cuda.empty_cache()
+    if gaps["float32"]["loss_gap"] > 1e-4 or gaps["float32"]["grad_gap"] > 1e-2:
+        raise AssertionError(f"modernbert float32 step against the reference: {gaps['float32']}")
+    out["pretrain_step"] = gaps
+    del state, ref_grads, a, b, view_a, view_b
+
+    # the rank forward: eager, captured, replayed
+    backbone = init_model_params(RecformerForSeqRec(cfg), cfg, device="cuda",
+                                 seed=seed).longformer
+    keys = ("input_ids", "attention_mask", "global_attention_mask", "token_type_ids",
+            "item_position_ids")
+    batch, _ = mb_batch(cfg, gen, lengths, L)
+    inputs = [batch[k] for k in keys]
+    per_call = {"kernel1.launches": n_local, "kernel1.tensor_core": n_local,
+                "global_attn.launches": n_global, "global_attn.fused": n_global}
+    expected = [{**per_call, "serve_graph.eager": 1}, {**per_call, "serve_graph.captures": 1},
+                {**per_call, "serve_graph.replays": 1}]
+    with torch.no_grad():
+        want = backbone.forward_eager(*inputs)
+        got, deltas, wall = [], [], []
+        for _ in range(3):  # eager, capture, replay
+            before = profiling.counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got.append(backbone(*inputs))
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            deltas.append(counter_deltas(before, profiling.counters()))
+        equal = [all(torch.equal(x, y) for x, y in zip(g, want)) for g in got]
+        replay_ms = host_ms(lambda: backbone(*inputs), n=3, warmup=0)
+        eager_ms = host_ms(lambda: backbone.forward_eager(*inputs), n=3, warmup=0)
+    emit("modernbert_rank_forward", shape=[B, L], bitwise_equal=equal, counts_per_call=deltas,
+         expected=expected, call_ms=wall, eager_ms=eager_ms, replay_ms=replay_ms,
+         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, card=card)
+    if not all(equal) or deltas != expected:
+        raise AssertionError(f"modernbert rank forward: equal {equal}, counts {deltas}")
+    out.update(rank_replay_ms=replay_ms, rank_eager_ms=eager_ms)
+    return out
 
 
 def run_offline_clis(seed, card):
@@ -4446,9 +4713,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["parallel", "probes"], default=None,
-                    help="build, then run only the parallel phases (30-36) or the probes' "
-                    "(7b, 7c); no result line")
+    ap.add_argument("--only", choices=["parallel", "probes", "modernbert"], default=None,
+                    help="build, then run only the parallel phases (30-36), the probes' "
+                    "(7b, 7c) or kernel_check, kernel_time and modernbert; no result line")
     # rank mode: this script as one rank of a world that it started itself
     ap.add_argument("--rank-task", choices=["world2", "world4"], help=argparse.SUPPRESS)
     ap.add_argument("--rank-out", help=argparse.SUPPRESS)
@@ -4472,7 +4739,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     # the probes' source under -Xptxas -v (probe_sass), compiled beside the build
     ptxas = None
-    if args.only != "parallel":
+    if args.only not in ("parallel", "modernbert"):
         pool = concurrent.futures.ThreadPoolExecutor(1)
         ptxas = pool.submit(_build.ptxas_report, _build.SOURCES["band_probes"])
         pool.shutdown(wait=False)
@@ -4485,6 +4752,15 @@ def main(argv=None) -> int:
     native_build_seconds = time.perf_counter() - t0
     if args.only == "parallel":
         run_parallel(args.seed, card)
+        emit("command_time", seconds=time.perf_counter() - t_start, limit_seconds=1200)
+        return 0
+    if args.only == "modernbert":
+        emit("ptxas", source="band_attention_fwd.cu",
+             kernels=_build.ptxas_report(_build.SOURCES["band_attention_fwd"]))
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        check_kernels(gen)
+        time_kernels(gen, card)
+        run_modernbert(args.seed, card)
         emit("command_time", seconds=time.perf_counter() - t_start, limit_seconds=1200)
         return 0
     if args.only == "probes":
@@ -4529,6 +4805,7 @@ def main(argv=None) -> int:
     phases.update(run_analytics(args.seed, card, native_build_seconds))
     phases.update(run_remat_and_host(args.seed, card))
     phases.update(run_parallel(args.seed, card))
+    run_modernbert(args.seed, card)
 
     sources = {"band_attention_fwd": "band_attention_fwd.cu",
                "band_attention_bwd": "band_attention_bwd.cu",

@@ -22,7 +22,13 @@ from ..training.checkpoint import load_torch_checkpoint, merge_params
 from ..utils.device import resolve_device
 
 
+MODEL_SIZES = ("base", "tiny", "modernbert-large")
+
+
 def build_config(args, item_num: int = 0) -> RecformerConfig:
+    """The config of ``args.model_size`` (one of :data:`MODEL_SIZES`:
+    ``RecformerConfig.base()``, ``.tiny()`` or ``.modernbert_large()``) with
+    the options the command line gave."""
     kw = dict(item_num=item_num)
     for name in ("temp", "finetune_negative_sample_size", "attention_impl",
                  "max_token_num", "pooler_type", "mlm_weight", "pos_weight",
@@ -30,9 +36,12 @@ def build_config(args, item_num: int = 0) -> RecformerConfig:
                  "scan_unroll", "ln_impl", "embed_ln_impl"):
         if hasattr(args, name) and getattr(args, name) is not None:
             kw[name] = getattr(args, name)
-    if getattr(args, "model_size", "base") == "tiny":
+    size = getattr(args, "model_size", "base")
+    if size == "tiny":
         return RecformerConfig.tiny(**{k: v for k, v in kw.items()
                                        if k not in ("max_token_num",)})
+    if size == "modernbert-large":
+        return RecformerConfig.modernbert_large(**kw)
     return RecformerConfig.base(**kw)
 
 

@@ -43,6 +43,7 @@ from ..training.optimizer import create_optimizer
 from ..utils.device import resolve_device
 from ..utils.io import load_finetune_artifacts
 from .common import (
+    MODEL_SIZES,
     build_config,
     init_model_params,
     make_tokenizer,
@@ -60,7 +61,7 @@ def parse_args(argv=None):
                    help="torch state dict to start from (cli.pretrain's best.pt, a .bin)")
     p.add_argument("--hf_tokenizer", type=str, default=None,
                    help="local HF tokenizer dir (RoBERTa BPE); hash backend if absent")
-    p.add_argument("--model_size", choices=["base", "tiny"], default="base")
+    p.add_argument("--model_size", choices=MODEL_SIZES, default="base")
     p.add_argument("--temp", type=float, default=0.05)
     p.add_argument("--num_train_epochs", type=int, default=16)
     p.add_argument("--gradient_accumulation_steps", type=int, default=8)

@@ -103,6 +103,7 @@ from ..utils.logging import MetricsLogger
 from ..utils.profiling import trace
 from ..utils.rng import StepRNG, fold_in
 from .common import (
+    MODEL_SIZES,
     build_config,
     init_model_params,
     make_tokenizer,
@@ -125,7 +126,7 @@ def parse_args(argv=None):
                    help="HF Longformer torch .bin to initialize from")
     p.add_argument("--hf_tokenizer", type=str, default=None,
                    help="local path of a Hugging Face tokenizer (no download)")
-    p.add_argument("--model_size", choices=["base", "tiny"], default="base")
+    p.add_argument("--model_size", choices=MODEL_SIZES, default="base")
     p.add_argument("--num_train_epochs", type=int, default=32)
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--gradient_accumulation_steps", type=int, default=8)

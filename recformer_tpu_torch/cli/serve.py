@@ -37,6 +37,7 @@ from ..training.loops import encode_all_items, encode_catalog_shard
 from ..utils.device import resolve_device
 from ..utils.io import read_json
 from .common import (
+    MODEL_SIZES,
     build_config,
     init_model_params,
     make_tokenizer,
@@ -54,7 +55,7 @@ def parse_args(argv=None):
     p.add_argument("--ckpt", type=str, default=None,
                    help="torch .bin/.pt state dict with HF Longformer names")
     p.add_argument("--hf_tokenizer", type=str, default=None)
-    p.add_argument("--model_size", choices=["base", "tiny"], default="base")
+    p.add_argument("--model_size", choices=MODEL_SIZES, default="base")
     p.add_argument("--sequences", type=str, required=True,
                    help="JSON: user -> item ids, or list of sequences")
     p.add_argument("--top_k", type=int, default=10)

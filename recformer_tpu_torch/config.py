@@ -21,6 +21,22 @@ version on the CPU), ``'dense'`` and ``'chunked'`` the plain twins, and
 which runs inside that module's entry points.
 ``attention_head_shard_axis`` marks a tensor-parallel model, whose heads
 ``parallel/tensor.py`` shards over the ``model`` process group.
+
+``backbone`` selects the encoder: ``'longformer'`` (the post-LayerNorm
+Longformer block of the JAX package) or ``'modernbert'`` (ModernBERT's
+pre-LayerNorm block, ``models/modernbert.py``, which the JAX package does
+not have). The ModernBERT fields keep ModernBERT's config keys: every
+``global_attn_every_n_layers``-th layer, from layer 0, attends to every
+non-padding token with RoPE at ``global_rope_theta``; the others attend to
+the tokens within ``local_attention // 2`` with RoPE at
+``local_rope_theta``. Its LayerNorms and projections carry no bias and its
+tied MLM decoder does, as ModernBERT publishes them (``norm_bias``,
+``attention_bias``, ``mlp_bias`` and ``classifier_bias`` false,
+``decoder_bias`` true); the MLP is GeGLU, ``Wi`` of width
+``2 * intermediate_size``. Token positions enter only through RoPE, so
+``max_position_embeddings`` bounds ``max_token_num`` and no position table
+exists. Such a model runs on one device (no tensor, sequence or pipeline
+parallelism) and without dropout, as ModernBERT publishes it.
 """
 
 from __future__ import annotations
@@ -31,6 +47,11 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+
+
+# the backbone selector and the fields only the modernbert backbone reads
+MODERNBERT_FIELDS = ("backbone", "global_attn_every_n_layers", "local_attention",
+                     "global_rope_theta", "local_rope_theta")
 
 
 @dataclass(frozen=True)
@@ -94,6 +115,13 @@ class RecformerConfig:
     scan_unroll: int = 1
     contrastive_gradient: str = "full"
 
+    # --- backbone (ModernBERT's keys; read when backbone='modernbert') ---
+    backbone: str = "longformer"
+    global_attn_every_n_layers: int = 3
+    local_attention: int = 128
+    global_rope_theta: float = 160000.0
+    local_rope_theta: float = 10000.0
+
     # ------------------------------------------------------------------
     def __post_init__(self):
         if isinstance(self.attention_window, int):
@@ -121,7 +149,11 @@ class RecformerConfig:
             raise ValueError("item_seq_len must be a multiple of the largest attention window")
         if self.hidden_size % self.num_attention_heads:
             raise ValueError("hidden_size must be divisible by num_attention_heads")
-        if self.max_token_num + self.pad_token_id + 1 > self.max_position_embeddings:
+        if self.backbone not in ("longformer", "modernbert"):
+            raise ValueError(f"unknown backbone {self.backbone!r}")
+        if self.backbone == "modernbert":
+            self._check_modernbert()
+        elif self.max_token_num + self.pad_token_id + 1 > self.max_position_embeddings:
             raise ValueError(
                 f"max_token_num={self.max_token_num} needs at least "
                 f"{self.max_token_num + self.pad_token_id + 1} position embeddings, "
@@ -149,6 +181,31 @@ class RecformerConfig:
             raise ValueError("scan_layers requires all attention windows equal")
         if self.contrastive_gradient not in ("full", "local"):
             raise ValueError(f"unknown contrastive_gradient {self.contrastive_gradient!r}")
+
+    def _check_modernbert(self):
+        if self.global_attn_every_n_layers < 1:
+            raise ValueError("global_attn_every_n_layers must be >= 1")
+        if self.attention_window != (self.local_attention,) * self.num_hidden_layers:
+            raise ValueError("a modernbert backbone's attention_window is local_attention on "
+                             f"every layer, got {self.attention_window}")
+        if max(self.max_token_num, self.item_seq_len) > self.max_position_embeddings:
+            raise ValueError(f"max_token_num={self.max_token_num} exceeds "
+                             f"max_position_embeddings={self.max_position_embeddings}")
+        if self.attention_head_shard_axis is not None:
+            raise ValueError("the modernbert backbone does not run under tensor parallelism")
+        if self.attention_impl == "sequence_parallel":
+            raise ValueError("the modernbert backbone does not run under sequence parallelism")
+        if self.hidden_dropout_prob or self.attention_probs_dropout_prob:
+            raise ValueError("the modernbert backbone runs without dropout (ModernBERT's "
+                             "published dropouts are 0)")
+        if self.embed_ln_impl != "xla" or self.ln_impl != "xla":
+            raise ValueError("the modernbert backbone takes embed_ln_impl='xla', ln_impl='xla'")
+        if self.pooler_type != "cls":
+            raise ValueError("the modernbert backbone pools the first token (pooler_type='cls')")
+
+    def is_global_layer(self, i: int) -> bool:
+        """Whether layer ``i`` of a modernbert backbone attends globally."""
+        return i % self.global_attn_every_n_layers == 0
 
     # ------------------------------------------------------------------
     @property
@@ -182,6 +239,46 @@ class RecformerConfig:
         return cls(**kw)
 
     @classmethod
+    def modernbert_large(cls, **kw) -> "RecformerConfig":
+        """ModernBERT-large (answerdotai/ModernBERT-large's config.json) as
+        RecFormer's backbone: 28 pre-LayerNorm layers, hidden 1,024, 16 heads
+        of 64, GeGLU 2 x 2,624, layers 0, 3, ..., 27 global (RoPE theta
+        160,000), the rest within 64 tokens (RoPE theta 10,000), no bias but
+        the decoder's, dropout 0, vocabulary 50,368, 8,192 positions. The
+        RecFormer contract stays: 4 token types, item positions (301, for
+        histories of up to 300 items), 3 x 32 attribute tokens, 128-token
+        items, CLS pooling; histories of 8,192 tokens."""
+        defaults = dict(
+            backbone="modernbert",
+            vocab_size=50368,
+            hidden_size=1024,
+            num_hidden_layers=28,
+            num_attention_heads=16,
+            intermediate_size=2624,
+            hidden_act="gelu",
+            hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0,
+            max_position_embeddings=8192,
+            layer_norm_eps=1e-5,
+            initializer_range=0.02,
+            pad_token_id=50283,
+            bos_token_id=50281,
+            eos_token_id=50282,
+            sep_token_id=50282,
+            mask_token_id=50284,
+            attention_window=(128,) * 28,
+            attention_impl="pallas",
+            global_attn_every_n_layers=3,
+            local_attention=128,
+            global_rope_theta=160000.0,
+            local_rope_theta=10000.0,
+            max_token_num=8192,
+            max_item_embeddings=301,
+        )
+        defaults.update(kw)
+        return cls(**defaults)
+
+    @classmethod
     def tiny(cls, **kw) -> "RecformerConfig":
         """Small config for tests and CI: 2 layers, hidden 64, window 16."""
         defaults = dict(
@@ -204,7 +301,14 @@ class RecformerConfig:
 
     # --- (de)serialization -------------------------------------------
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+        """The fields as JSON; a longformer config leaves out the modernbert
+        backbone's fields (it reads none of them), so its JSON is the JAX
+        package's."""
+        doc = dataclasses.asdict(self)
+        if self.backbone == "longformer":
+            for name in MODERNBERT_FIELDS:
+                del doc[name]
+        return json.dumps(doc, indent=2, sort_keys=True)
 
     @classmethod
     def from_json(cls, text: str) -> "RecformerConfig":

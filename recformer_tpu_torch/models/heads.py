@@ -21,7 +21,7 @@ from ..config import RecformerConfig
 from ..utils.profiling import spanned
 from ..utils.rng import dropout
 from .encoder import activation, block_layernorm, dense
-from .recformer import RecformerModel
+from .modernbert import ModernBertPredictionHead, backbone_model
 
 # the fraud MLP's dropout rate: a constant of the JAX head, not a config field
 FRAUD_MLP_DROPOUT = 0.2
@@ -54,7 +54,7 @@ class RecformerForSeqRec(nn.Module):
     def __init__(self, config: RecformerConfig):
         super().__init__()
         self.config = config
-        self.longformer = RecformerModel(config)
+        self.longformer = backbone_model(config)
 
     def forward(self, batch: Dict[str, torch.Tensor], deterministic: bool = True,
                 rng=None) -> torch.Tensor:
@@ -80,7 +80,7 @@ class RecformerForFraudDetection(nn.Module):
     def __init__(self, config: RecformerConfig):
         super().__init__()
         self.config = config
-        self.longformer = RecformerModel(config)
+        self.longformer = backbone_model(config)
         h, pd = config.hidden_size, config.params_dtype
         self.fc1 = nn.Linear(h, h // 2, dtype=pd)
         self.fc2 = nn.Linear(h // 2, h // 4, dtype=pd)
@@ -131,16 +131,31 @@ class PretrainForwardOutput(NamedTuple):
     mlm_logits_b: Optional[torch.Tensor]  # (B, P_b, vocab)
 
 
+class DecoderBias(nn.Module):
+    """The bias of ModernBERT's tied decoder (``decoder.bias``); the
+    decoder's weight is the word table."""
+
+    def __init__(self, config: RecformerConfig):
+        super().__init__()
+        self.bias = nn.Parameter(torch.zeros(config.vocab_size, dtype=config.params_dtype))
+
+
 class RecformerForPretraining(nn.Module):
     """Dual-tower forward with MLM towers; the item view (single target
     item) runs at ``config.item_seq_len``. With ``fuse_mlm_pass`` a view's
-    clean and MLM-corrupted inputs run as one ``(2B, L)`` forward."""
+    clean and MLM-corrupted inputs run as one ``(2B, L)`` forward. The MLM
+    head is Longformer's ``lm_head`` or, under the modernbert backbone,
+    ModernBERT's ``head`` and ``decoder`` (the decoder's bias)."""
 
     def __init__(self, config: RecformerConfig):
         super().__init__()
         self.config = config
-        self.longformer = RecformerModel(config)
-        self.lm_head = MLMTransform(config)
+        self.longformer = backbone_model(config)
+        if config.backbone == "modernbert":
+            self.head = ModernBertPredictionHead(config)
+            self.decoder = DecoderBias(config)
+        else:
+            self.lm_head = MLMTransform(config)
 
     def _backbone(self, input_ids, batch, deterministic, rng, dup: bool = False):
         def d(x):
@@ -163,8 +178,10 @@ class RecformerForPretraining(nn.Module):
         dt = self.config.compute_dtype
         gathered = torch.gather(hidden, 1, positions.long()[:, :, None].expand(
             -1, -1, hidden.shape[-1]))  # (B, P, H)
-        h = self.lm_head(gathered)
         w = self.longformer.embeddings.word_embeddings.weight.to(dt)
+        if self.config.backbone == "modernbert":
+            return (self.head(gathered).to(dt) @ w.t()).float() + self.decoder.bias.float()
+        h = self.lm_head(gathered)
         return (h.to(dt) @ w.t()).float() + self.lm_head.bias.float()
 
     def mlm_logits(self, mlm_input_ids, batch, mlm_positions, deterministic: bool = True,

@@ -1,6 +1,8 @@
 """Recformer backbone: embeddings -> Longformer encoder -> pooler.
 
-Counterpart of ``recformer_tpu/models/recformer.py``. Batches are padded to
+Counterpart of ``recformer_tpu/models/recformer.py``. :class:`Backbone` holds
+what every backbone shares (the serving dispatch below); the ModernBERT
+backbone is ``models/modernbert.py``. Batches are padded to
 a static length that is a multiple of the attention window; the {0,1} x
 {0,1} masks merge into {0 none, 1 local, 2 global}. A call without
 gradients and without dropout (serving, evaluation, catalog encoding) goes
@@ -39,13 +41,14 @@ class RecformerPooler(nn.Module):
         return (hidden * w[:, :, None]).sum(1) / w.sum(-1).clamp_min(1e-6)[:, None]
 
 
-class RecformerModel(nn.Module):
+class Backbone(nn.Module):
+    """What every backbone shares: the forward's dispatch between
+    :meth:`forward_eager`, which each backbone defines, and its
+    :class:`~.serve_graph.ServeGraphs`."""
+
     def __init__(self, config: RecformerConfig):
         super().__init__()
         self.config = config
-        self.embeddings = RecformerEmbeddings(config)
-        self.encoder = LongformerEncoder(config)
-        self.pooler = RecformerPooler(config)
         self.serve_graphs = ServeGraphs()
 
     @spanned("forward.encoder")
@@ -67,6 +70,20 @@ class RecformerModel(nn.Module):
 
     def forward_eager(self, input_ids, attention_mask, global_attention_mask, token_type_ids,
                       item_position_ids, position_ids=None, rng=None):
+        raise NotImplementedError
+
+
+class RecformerModel(Backbone):
+    """The Longformer backbone: embeddings, encoder, pooler."""
+
+    def __init__(self, config: RecformerConfig):
+        super().__init__(config)
+        self.embeddings = RecformerEmbeddings(config)
+        self.encoder = LongformerEncoder(config)
+        self.pooler = RecformerPooler(config)
+
+    def forward_eager(self, input_ids, attention_mask, global_attention_mask, token_type_ids,
+                      item_position_ids, position_ids=None, rng=None):
         """The forward, launched from Python op by op; dropout when ``rng``
         is given."""
         mask = merge_attention_masks(attention_mask, global_attention_mask)
@@ -79,17 +96,18 @@ class RecformerModel(nn.Module):
 def init_weights(module: nn.Module, config: RecformerConfig, generator: torch.Generator):
     """The JAX package's initialisers from an explicit generator: normal
     (0, initializer_range) for dense kernels and embedding tables, zero
-    biases (the MLM decoder bias included), unit LayerNorm scales."""
+    biases (the MLM decoder bias included), unit LayerNorm scales. Layers
+    without a bias keep none."""
     std = config.initializer_range
     for m in module.modules():
         if isinstance(m, nn.Linear):
             m.weight.normal_(0.0, std, generator=generator)
-            m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, std, generator=generator)
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
+        if isinstance(m, (nn.Linear, nn.LayerNorm)) and m.bias is not None:
             m.bias.zero_()
     for name, p in module.named_parameters():
-        if name == "lm_head.bias":
+        if name in ("lm_head.bias", "decoder.bias"):
             p.zero_()

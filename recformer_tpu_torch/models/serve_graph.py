@@ -2,7 +2,8 @@
 
 ``RecformerModel.forward`` hands every call made without gradients and
 without dropout to the model's :class:`ServeGraphs`, which replays a CUDA
-graph of the forward where the call allows it. Eagerly, the forward is a
+graph of the forward where the call allows it (either backbone's,
+``models/recformer.Backbone``). Eagerly, the forward is a
 chain of about 155 small launches a layer (the dense products' casts, the
 float32 LayerNorm chain, the global rows, kernel 1 through ctypes on the
 current stream), each launched from Python, and at the serving shapes the
@@ -44,8 +45,8 @@ Counters (``utils/profiling.count``): ``serve_graph.captures``,
 or dropout that ran eagerly: first sightings and calls that did not
 qualify). The kernels' wrappers run only while a graph is captured, where
 nothing reaches the card: the counts a capture records
-(``kernel1.launches``, ``kernel1.tensor_core``, ...) are taken back after
-it and added again at each replay, so every counter counts launches on the
+(``kernel1.launches``, ``kernel1.tensor_core``, ``global_attn.launches``,
+...) are taken back after it and added again at each replay, so every counter counts launches on the
 card. The ``launch.kernel<N>`` spans record only in eager and capturing
 calls.
 

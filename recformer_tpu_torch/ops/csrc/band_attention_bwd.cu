@@ -56,7 +56,8 @@
 //   once: the query pass shares one call per four columns across a thread
 //   pair by shuffles; in the key pass the four keys of a call sit in four
 //   lanes, so lanes draw and exchange the words through shared memory.
-// - CUDA cores, for float32 and every other shape: a warp owns one row (a
+// - CUDA cores, for float32 and every other shape (W = 128 and G = 0 among
+//   them: ModernBERT's local layers): a warp owns one row (a
 //   key in the key pass) and reads its operands from float32 shared memory
 //   once per pair, so shared-memory bandwidth limits it; the keep bits of a
 //   row (a key tile) are drawn once per four adjacent columns into shared
@@ -1020,8 +1021,10 @@ band_bwd_key_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// the tensor-core passes stage one global tile: G == 0 (no global column)
+// takes the CUDA-core passes
 bool tc_shape(int dtype, int D, int G, int window) {
-  return dtype == 1 && D == tcb::D && window == tcb::W && G <= tcb::GMAX;
+  return dtype == 1 && D == tcb::D && window == tcb::W && G >= 1 && G <= tcb::GMAX;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
@@ -1108,6 +1111,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* keyl
   if (err != cudaSuccess) return err;
 
   const size_t n = (size_t)3 * B * G * H * D;
+  if (n == 0) return cudaSuccess;  // no global column: nothing to reduce
   const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
   band_bwd_reduce_kernel<<<blocks, 256, 0, stream>>>(ws, dg, B, H, n_tiles, G, D);
   return cudaGetLastError();
@@ -1144,7 +1148,8 @@ extern "C" int band_attention_bwd_tile(int D, int G, int window) {
 }
 
 // Which kernel band_attention_bwd launches for these sizes: 1 the
-// tensor-core passes (bf16, D == W == 64, G <= 8), 0 the CUDA-core ones.
+// tensor-core passes (bf16, D == W == 64, 1 <= G <= 8), 0 the CUDA-core ones
+// (G may be 0 there: no global column).
 extern "C" int band_attention_bwd_path(int dtype, int D, int G, int window) {
   return tc_shape(dtype, D, G, window) ? 1 : 0;
 }
@@ -1159,7 +1164,7 @@ extern "C" int band_attention_bwd(int dtype, const void* q, const void* k, const
                                   int B, int L, int H, int D, int G, int window, float q_scale,
                                   float dq_scale, int fuse_epilogue, int dropout, uint32_t seed,
                                   uint32_t threshold, float drop_scale, void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0 || G <= 0 || window <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || L <= 0 || H <= 0 || G < 0 || window <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout drop{seed, threshold, drop_scale, dropout != 0};
   float* dgf = static_cast<float*>(dg);

@@ -7,27 +7,30 @@
 // Operands, all row-major and contiguous:
 //   q, k, v, out : (B, L, H*D)   float or bf16
 //   keyloc, mrow : (B, L)        int32 (keyloc 1 = local key; mrow in {0,1,2})
-//   gk, gv, gout : (B, G, H*D)   float or bf16
+//   gk, gv, gout : (B, G, H*D)   float or bf16; G may be 0 (no global column)
 //   gvalid       : (B, G)        int32
 //
 // Two kernels compute the same function; the entry point picks by dtype and
 // shape:
-// - band_attention_fwd_tc_kernel: bf16 with D == W == 64 (the Recformer-base
-//   shapes), G <= 8 (band_attention_fwd_path); its operands must be 16-byte
-//   aligned, which the wrapper ensures. Tensor cores (mma.sync
-//   m16n8k16, bf16 in, fp32 accumulate). One block of 8 warps per 128 query
-//   rows of one (batch, head), so at L <= 128 every K/V row is staged once
-//   and at L = 1024 1.5 times; a warp owns 16 rows and the 80 band keys they
-//   can see, plus one 8-wide tile of global keys. The block stages with
-//   cp.async in two groups (Q and K, then V), zero-filling rows off [0, L)
-//   without reading them, so V arrives while the scores are computed; the
-//   output leaves through shared memory in 16-byte stores. Two blocks fit
-//   on an SM (79 KB of shared memory, 128 registers a thread). Bytes bound
-//   the function (about 4*D flops per pair against 8*D bytes per row and
-//   head), but the kernel is held back inside the SM: a persistent grid of
-//   one block per SM that prefetched the next tile into a second stage ran
-//   slower (PERF.md), since 8 warps an SM cannot hide the latency of the
-//   score arithmetic.
+// - band_attention_fwd_tc_kernel<W>: bf16 with D == 64, W in {64, 128} (the
+//   Recformer-base shapes at 64, ModernBERT's local layers at 128), G <= 8
+//   (band_attention_fwd_path); its operands must be 16-byte aligned, which
+//   the wrapper ensures. Tensor cores (mma.sync m16n8k16, bf16 in, fp32
+//   accumulate). One block of 8 warps per 128 query rows of one (batch,
+//   head), so every K/V row is staged (128 + W) / 128 times; a warp owns 16
+//   rows and the 16 + W band keys they can see, plus, when G > 0, one 8-wide
+//   tile of global keys (read at run time: zero-filled, and its products
+//   skipped, when G == 0). The block stages with cp.async in two groups (Q and
+//   K, then V), zero-filling rows off [0, L) without reading them, so V
+//   arrives while the scores are computed; the exponentials are packed to
+//   bf16 pairs before P.V, which frees their fp32 registers for the output;
+//   the output leaves through shared memory in 16-byte stores. Two blocks
+//   fit on an SM at either W (79 KB / 96 KB of shared memory, 128 registers
+//   a thread). Bytes bound the function (about 4*D flops per pair against
+//   8*D bytes per row and head), but the kernel is held back inside the SM:
+//   a persistent grid of one block per SM that prefetched the next tile into
+//   a second stage ran slower (PERF.md), since 8 warps an SM cannot hide the
+//   latency of the score arithmetic.
 // - band_attention_fwd_kernel: every other shape and float32. CUDA cores; a
 //   warp owns one query row at a time.
 
@@ -235,25 +238,28 @@ cudaError_t dispatch_simt(int D, const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernel: bf16, D == W == 64
+// Tensor-core kernel: bf16, D == 64, W in {64, 128}
 // ---------------------------------------------------------------------------
 
-namespace tc {
-constexpr int D = 64;
-constexpr int W = 64;
-constexpr int HALF = W / 2;
-constexpr int WARPS = 8;
-constexpr int TILE = 16 * WARPS;      // query rows per block
-constexpr int BAND = TILE + W;        // band rows per block
-constexpr int NT = (16 + W) / 8;      // 8-key tiles one warp's 16 rows can see
-constexpr int GMAX = 8;               // global keys: one 8-wide tile
-constexpr int GPAD = 16;              // global rows padded to one k-step of P.V
-constexpr int S = D + 8;              // smem row stride (bf16): 144 B, ldmatrix without conflicts
-constexpr int CH = D / 8;             // 16-byte chunks per row
-constexpr int SMEM = (TILE + 2 * BAND + 2 * GPAD) * S * 2 + BAND * 4;
-}  // namespace tc
+template <int W_>
+struct Tc {
+  static constexpr int D = 64;
+  static constexpr int W = W_;
+  static constexpr int HALF = W / 2;
+  static constexpr int WARPS = 8;
+  static constexpr int TILE = 16 * WARPS;      // query rows per block
+  static constexpr int BAND = TILE + W;        // band rows per block
+  static constexpr int NT = (16 + W) / 8;      // 8-key tiles one warp's 16 rows can see
+  static constexpr int GMAX = 8;               // global keys: one 8-wide tile
+  static constexpr int GPAD = 16;              // global rows padded to one k-step of P.V
+  static constexpr int S = D + 8;              // smem row stride (bf16): 144 B, ldmatrix without conflicts
+  static constexpr int CH = D / 8;             // 16-byte chunks per row
+  static constexpr int SMEM = (TILE + 2 * BAND + 2 * GPAD) * S * 2 + BAND * 4;
+  static_assert(NT % 2 == 0, "P.V takes the band in 16-key steps");
+};
 
-__global__ void __launch_bounds__(tc::WARPS * 32, 2)
+template <int W_, bool GLOBALS>
+__global__ void __launch_bounds__(Tc<W_>::WARPS * 32, 2)
 band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v,
@@ -265,13 +271,18 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ gout,
                              __nv_bfloat16* __restrict__ out, int L, int H, int G, float scale,
                              int fuse_epilogue, Dropout drop) {
-  using namespace tc;
+  using T = Tc<W_>;
+  constexpr int D = T::D, W = T::W, HALF = T::HALF, TILE = T::TILE, BAND = T::BAND;
+  constexpr int NT = T::NT, GPAD = T::GPAD, S = T::S, CH = T::CH;
   using bf16 = __nv_bfloat16;
   const int HD = H * D;
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int t0 = blockIdx.x * TILE;
   const int lo = t0 - HALF;  // band row 0 holds key lo (may lie before 0)
+  // GLOBALS: G >= 1 is known when compiling; otherwise G (0 or more) is
+  // read at run time
+  const bool globals = GLOBALS || G > 0;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // (TILE, S) scaled queries, then the output
@@ -284,9 +295,12 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   // stage with cp.async in two groups: Q, K and the global keys first, V
   // and the global values behind them, so that V arrives while the scores
   // are computed. Rows outside [0, L) (and global rows >= G) are zero-filled
-  // by the copy without reading memory.
+  // by the copy without reading memory; with no global column the source
+  // address is q's (gk may be null), never read.
   const size_t head = (size_t)b * L * HD + (size_t)h * D;
-  const size_t ghead = (size_t)b * G * HD + (size_t)h * D;
+  const size_t ghead = globals ? (size_t)b * G * HD + (size_t)h * D : head;
+  const bf16* gk_ = globals ? gk : q;
+  const bf16* gv_ = globals ? gv : q;
   for (int c = threadIdx.x; c < TILE * CH; c += blockDim.x) {
     const int r = c / CH, col = (c % CH) * 8, i = t0 + r;
     band::cp_async16(qs + r * S + col, q + head + (size_t)(i < L ? i : 0) * HD + col, i < L);
@@ -298,7 +312,7 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
   for (int c = threadIdx.x; c < GPAD * CH; c += blockDim.x) {
     const int g = c / CH, col = (c % CH) * 8;
-    band::cp_async16(gks + g * S + col, gk + ghead + (size_t)(g < G ? g : 0) * HD + col, g < G);
+    band::cp_async16(gks + g * S + col, gk_ + ghead + (size_t)(g < G ? g : 0) * HD + col, g < G);
   }
   band::cp_async_commit();
   for (int c = threadIdx.x; c < BAND * CH; c += blockDim.x) {
@@ -308,7 +322,7 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
   for (int c = threadIdx.x; c < GPAD * CH; c += blockDim.x) {
     const int g = c / CH, col = (c % CH) * 8;
-    band::cp_async16(gvs + g * S + col, gv + ghead + (size_t)(g < G ? g : 0) * HD + col, g < G);
+    band::cp_async16(gvs + g * S + col, gv_ + ghead + (size_t)(g < G ? g : 0) * HD + col, g < G);
   }
   band::cp_async_commit();
   for (int r = threadIdx.x; r < BAND; r += blockDim.x) {
@@ -326,14 +340,14 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int lane = threadIdx.x & 31;
   const int gq = lane >> 2;  // this thread's rows in the warp's 16: gq and gq + 8
   const int tq = lane & 3;   // and its column pair in each 8-wide tile: 2tq, 2tq + 1
-  const int r0 = warp * 16;  // the warp's first query row in the tile; its keys are band rows r0.. r0+79
+  const int r0 = warp * 16;  // the warp's first query row in the tile; its keys are band rows r0.. r0+15+W
 
   uint32_t qa[D / 16][4];
 #pragma unroll
   for (int kc = 0; kc < D / 16; ++kc)
     band::ldsm_x4(qa[kc], qs + (r0 + (lane & 15)) * S + kc * 16 + (lane >> 4) * 8);
 
-  // scores: NT band tiles and one global tile, fp32
+  // scores: NT band tiles and (with global columns) one global tile, fp32
   float sc[NT][4];
   float sg[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -348,7 +362,7 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       band::mma_bf16(sc[nt], qa[2 * dc + 1], bk[2], bk[3]);
     }
   }
-  {
+  if (globals) {
     const bf16* kb = gks + (lane & 7) * S + (lane >> 3) * 8;
 #pragma unroll
     for (int dc = 0; dc < D / 32; ++dc) {
@@ -423,36 +437,44 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[nt][e] = kp[e] ? sc[nt][e] * drop.scale : 0.f;
     }
-    bool kp[4];
-    band::keep_global(drop, b, h, i0, i0 + 8, L, tq, kp);
+    if (globals) {
+      bool kp[4];
+      band::keep_global(drop, b, h, i0, i0 + 8, L, tq, kp);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) sg[e] = kp[e] ? sg[e] * drop.scale : 0.f;
+      for (int e = 0; e < 4; ++e) sg[e] = kp[e] ? sg[e] * drop.scale : 0.f;
+    }
+  }
+
+  // the score tiles of 16 keys are, register for register, the A fragments
+  // of P.V: packed to bf16 pairs once
+  uint32_t pa[NT / 2][4];
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    pa[kk][0] = band::pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
+    pa[kk][1] = band::pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
+    pa[kk][2] = band::pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+    pa[kk][3] = band::pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
   }
 
   band::cp_async_wait<0>();
   __syncthreads();
 
-  // out = P.V: the score tiles of 16 keys are, register for register, the
-  // A fragments of the next product
+  // out = P.V
   float o[D / 8][4];
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < NT / 2; ++kk) {
-    const uint32_t a[4] = {band::pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                           band::pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                           band::pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                           band::pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
     const bf16* vb = vs + (r0 + kk * 16 + (lane & 15)) * S + (lane >> 4) * 8;
 #pragma unroll
     for (int dp = 0; dp < D / 16; ++dp) {
       uint32_t bv[4];
       band::ldsm_x4_trans(bv, vb + dp * 16);
-      band::mma_bf16(o[2 * dp], a, bv[0], bv[1]);
-      band::mma_bf16(o[2 * dp + 1], a, bv[2], bv[3]);
+      band::mma_bf16(o[2 * dp], pa[kk], bv[0], bv[1]);
+      band::mma_bf16(o[2 * dp + 1], pa[kk], bv[2], bv[3]);
     }
   }
-  {
+  if (globals) {
     const uint32_t a[4] = {band::pack_bf16(sg[0], sg[1]), band::pack_bf16(sg[2], sg[3]), 0u, 0u};
     const bf16* vb = gvs + (lane & 15) * S + (lane >> 4) * 8;
 #pragma unroll
@@ -465,7 +487,8 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // divide and fused epilogue into the warp's own 16 rows of qs (only this
-  // warp read them), then 16-byte stores of whole rows
+  // warp read them), then 16-byte stores of whole rows; a mask == 2 row
+  // (only with global columns) takes its global row
   bf16* ow = qs + r0 * S;
   const bf16* grow = gout + ghead;
 #pragma unroll
@@ -477,7 +500,7 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       const int col = dt * 8 + 2 * tq;
       float v0 = o[dt][2 * x] * inv[x];
       float v1 = o[dt][2 * x + 1] * inv[x];
-      if (mr == 2) {
+      if (mr == 2 && globals) {
         v0 = __bfloat162float(grow[col]);
         v1 = __bfloat162float(grow[col + 1]);
       } else if (mr != 1) {
@@ -496,16 +519,19 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <int W, bool GLOBALS>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* keyloc,
                       const void* gk, const void* gv, const void* gvalid, const void* mrow,
                       const void* gout, void* out, int B, int L, int H, int G, float scale,
                       int fuse, Dropout drop, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(band_attention_fwd_tc_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM);
+  using T = Tc<W>;
+  auto kernel = band_attention_fwd_tc_kernel<W, GLOBALS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((L + tc::TILE - 1) / tc::TILE, H, B);
+  dim3 grid((L + T::TILE - 1) / T::TILE, H, B);
   using bf16 = __nv_bfloat16;
-  band_attention_fwd_tc_kernel<<<grid, tc::WARPS * 32, tc::SMEM, stream>>>(
+  kernel<<<grid, T::WARPS * 32, T::SMEM, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int32_t*>(keyloc), static_cast<const bf16*>(gk),
       static_cast<const bf16*>(gv), static_cast<const int32_t*>(gvalid),
@@ -515,7 +541,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* k
 }
 
 bool tc_shape(int dtype, int D, int G, int window) {
-  return dtype == 1 && D == tc::D && window == tc::W && G <= tc::GMAX;
+  return dtype == 1 && D == Tc<64>::D && (window == 64 || window == 128) && G <= Tc<64>::GMAX;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
@@ -523,12 +549,14 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 }  // namespace
 
 // Which kernel band_attention_fwd launches for these sizes: 1 the
-// tensor-core kernel (bf16, D == W == 64, G <= 8), 0 the CUDA-core one.
+// tensor-core kernel (bf16, D == 64, W in {64, 128}, G <= 8), 0 the
+// CUDA-core one.
 extern "C" int band_attention_fwd_path(int dtype, int D, int G, int window) {
   return tc_shape(dtype, D, G, window) ? 1 : 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Dropout (band_common.cuh) is on when
+// dtype: 0 = float32, 1 = bfloat16; G = 0 means no global column (gk, gv,
+// gvalid and gout are then never read). Dropout (band_common.cuh) is on when
 // ``dropout`` is non-zero. Returns the launch's cudaError_t. The tensor-core
 // kernel takes 16-byte aligned operands and returns
 // cudaErrorMisalignedAddress otherwise.
@@ -538,14 +566,20 @@ extern "C" int band_attention_fwd(int dtype, const void* q, const void* k, const
                                   void* out, int B, int L, int H, int D, int G, int window,
                                   float scale, int fuse_epilogue, int dropout, uint32_t seed,
                                   uint32_t threshold, float drop_scale, void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0 || G <= 0 || window <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || L <= 0 || H <= 0 || G < 0 || window <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout drop{seed, threshold, drop_scale, dropout != 0};
   if (tc_shape(dtype, D, G, window)) {
-    for (const void* p : {q, k, v, gk, gv, static_cast<const void*>(out)})
+    for (const void* p : {q, k, v, static_cast<const void*>(out)})
       if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
-    return (int)launch_tc(q, k, v, keyloc, gk, gv, gvalid, mrow, gout, out, B, L, H, G, scale,
-                          fuse_epilogue, drop, s);
+    if (G > 0 && (!aligned16(gk) || !aligned16(gv))) return (int)cudaErrorMisalignedAddress;
+    // W 64 with global columns (Recformer-base) compiles them in; the rest
+    // reads G at run time (measured faster at W 128, where the compile-time
+    // forms spill more registers)
+    auto launch = window == 128 ? &launch_tc<128, false>
+                                : (G > 0 ? &launch_tc<64, true> : &launch_tc<64, false>);
+    return (int)launch(q, k, v, keyloc, gk, gv, gvalid, mrow, gout, out, B, L, H, G, scale,
+                       fuse_epilogue, drop, s);
   }
   if (dtype == 0)
     return (int)dispatch_simt<float>(D, q, k, v, keyloc, gk, gv, gvalid, mrow, gout, out, B,

@@ -27,10 +27,12 @@ row and head in bf16, far below the card's ~295 flops per byte in bf16, so
 the bound is HBM bytes. A thread block owns a tile of rows of one (batch,
 head) and stages the tile's K/V band in shared memory once; scores never
 leave the chip. Each kernel has two versions and picks one from what it can
-observe of the inputs. For bf16 at ``D == W == 64`` with at most 8 global
+observe of the inputs. For bf16 at ``D == W == 64`` with 1 to 8 global
 columns (every Recformer-base shape, serving and training) both run on the
-tensor cores (``mma.sync`` m16n8k16, bf16 in, fp32 accumulate), staging
-bf16 tiles with ``cp.async``: the forward takes 128 query rows a block and
+tensor cores, and the forward also at ``W == 128`` and at ``G == 0``
+(ModernBERT's local layers, :func:`local_window_attention`), with
+``mma.sync`` m16n8k16 (bf16 in, fp32 accumulate), staging bf16 tiles with
+``cp.async``: the forward takes 128 query rows a block and
 feeds the exponentials, rounded to bf16, straight back as the A operand of
 ``P.V``; the backward's query pass does the same with ``dS`` for ``dQ``,
 and its key pass swaps the roles of Q and K for ``dK``/``dV``. The rounding
@@ -209,9 +211,10 @@ def window_attention_plain(q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout,
     out += torch.einsum("blhg,bghd->blhd", e[..., window + 1:], gv.view(B, G, H, D).float())
     out = out / denom
     if fuse_epilogue:
-        g_row = gout[:, :1].view(B, 1, H, D).float()
         mr = mrow[:, :, None, None]
-        out = torch.where(mr == 2, g_row, torch.where(mr == 1, out, 0.0))
+        out = torch.where(mr == 1, out, 0.0)
+        if G:
+            out = torch.where(mr == 2, gout[:, :1].view(B, 1, H, D).float(), out)
     return out.to(dt).view(B, L, HD)
 
 
@@ -246,7 +249,8 @@ def window_attention_bwd_plain(q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, d
     if fuse_epilogue:
         mr = mrow[:, :, None, None]
         dgout = torch.zeros((B, G, HD), dtype=torch.float32, device=q2.device)
-        dgout[:, 0] = torch.where(mr == 2, do, 0.0).sum(1).reshape(B, HD)
+        if G:
+            dgout[:, 0] = torch.where(mr == 2, do, 0.0).sum(1).reshape(B, HD)
         do = torch.where(mr == 1, do, 0.0)
     else:
         dgout = torch.zeros((B, G, HD), dtype=torch.float32, device=q2.device)
@@ -483,6 +487,22 @@ def prepare_band_inputs(q, k, v, mask, max_globals: int = 1):
         mrow=mask.to(torch.int32),
     )
     return mask, ops
+
+
+def local_window_attention(q, k, v, key_mask, window: int):
+    """Banded attention with no global column (G = 0), through kernel 1
+    and its backward: query i attends to the keys j with ``key_mask[j]``
+    nonzero and ``|i - j| <= window // 2``; rows whose ``key_mask`` is 0
+    (padding) give 0. ``q`` (RoPE-rotated), ``k``, ``v``: ``(B, L, H, D)``;
+    ``key_mask``: ``(B, L)``. ModernBERT's local layers; no dropout."""
+    B, L, H, D = q.shape
+    HD = H * D
+    keyloc = (key_mask != 0).to(torch.int32)
+    none = q.new_zeros((B, 0, HD))
+    out = band_attention(q.reshape(B, L, HD), k.reshape(B, L, HD), v.reshape(B, L, HD), keyloc,
+                         none, none, keyloc[:, :0], keyloc, none, num_heads=H, window=window,
+                         fuse_epilogue=True)
+    return out.view(B, L, H, D)
 
 
 def draw_seed(host_generator: torch.Generator) -> int:

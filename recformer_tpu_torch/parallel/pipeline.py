@@ -160,6 +160,11 @@ def _make_pipelined_encoder(encoder, mesh, num_microbatches: int):
     return run
 
 
+def _longformer_only(cfg) -> None:
+    if cfg.backbone != "longformer":
+        raise ValueError(f"pipeline parallelism runs the longformer backbone, not {cfg.backbone!r}")
+
+
 def make_pipeline_forward(model, mesh, num_microbatches: int, deterministic: bool = True):
     """The backbone (embeddings -> pipelined encoder -> pooler) of a
     ``RecformerModel`` with ``config.scan_layers``; ``num_hidden_layers``
@@ -170,6 +175,7 @@ def make_pipeline_forward(model, mesh, num_microbatches: int, deterministic: boo
     gradients land on their stage (see ``owned_by_stage``)."""
     from ..models.recformer import merge_attention_masks
 
+    _longformer_only(model.config)
     if not model.config.scan_layers:
         raise ValueError("pipeline parallelism requires scan_layers=True")
     encoder_run = _make_pipelined_encoder(model.encoder, mesh, num_microbatches)
@@ -205,6 +211,7 @@ def make_pipeline_pretrain_step(config, model, optimizer, mesh, num_microbatches
     from ..models.recformer import merge_attention_masks
     from ..training.steps import model_axis_backward, take_rows
 
+    _longformer_only(config)
     cfg = config
     if not cfg.scan_layers:
         raise ValueError("pipeline parallelism requires scan_layers=True")

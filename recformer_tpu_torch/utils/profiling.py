@@ -23,13 +23,16 @@ The names, at the layer boundaries of ``PERF.md`` §3: ``batch`` (device-side
 batch assembly, pairs and whole-word MLM), ``forward`` (a training step's
 model call through the loss), ``forward.encoder`` (the backbone),
 ``backward`` (with the gradient reduction under a mesh), ``optimizer``,
-``score`` (similarity against the catalog) and ``launch.kernel1`` ..
-``launch.kernel5`` (the hand-written kernels' host wrappers).
+``score`` (similarity against the catalog), ``launch.kernel1`` ..
+``launch.kernel5`` (the hand-written kernels' host wrappers) and
+``launch.global_attn`` (the full-attention op's wrapper,
+``ops/full_attention.py``).
 
 Counters (:func:`count`) are host integers and always on: the kernels'
 launches, ``kernel<N>.launches``, ``kernel1.tensor_core`` and
 ``kernel2.tensor_core`` (those on the tensor cores), ``ablation.launches``
-and ``headpair.launches``; the backbone's CUDA graphs for serving
+and ``headpair.launches``; the full-attention op's ``global_attn.launches``
+and ``global_attn.fused`` (those on a fused backend); the backbone's CUDA graphs for serving
 (``models/serve_graph.py``), ``serve_graph.captures``,
 ``serve_graph.replays`` and ``serve_graph.eager``. A replayed graph adds
 the launch counts its capture recorded.
