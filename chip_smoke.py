@@ -270,6 +270,19 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     kernel-1 launches on the tensor cores and 10 global-attention launches
     on a fused backend. ``python3 chip_smoke.py --only modernbert`` builds,
     runs kernel_check and kernel_time, then this phase (no result line).
+38. train_graph (run after serve_graph): the training micro-step's CUDA
+    graphs (``training/train_graph.py``) at Recformer-base, pretraining at
+    batch 8 and accumulation 8 over 24 micro-steps and fraud training at
+    batch 16 over 5 steps, each beside the eager step from the same weights
+    and draws: every call's metrics, every gradient the optimizer gets and
+    every parameter after each update bitwise equal (both under PyTorch's
+    deterministic algorithms); one capture, replays =
+    calls - 2, kernel 1-2 launches a call as the code says; the step
+    host-timed eager and replayed; kernel 1's device time at dropout 0 at W
+    64 and W 128 beside PR 18's, and at dropout 0.1 with its seed passed as
+    an int and read from device memory. ``python3 chip_smoke.py --only
+    train_graph`` builds, runs kernel_check, then this phase (no result
+    line).
 
 Launch counts, set to 0 just before each path and read just after, show that
 the paths ran the kernels (each kernel on its path at least once; the
@@ -1462,6 +1475,180 @@ def run_serve_graph(seed, card):
     counts = read_counts()
     return {"band_attention_fwd": counts["band_attention_fwd"],
             "band_attention_fwd_tc": counts["band_attention_fwd_tc"]}
+
+
+# kernel 1's device ms a launch at dropout 0 before the training graphs
+# (my chip runs, PR 18): W 64 at the base shapes, W 128 at (32, 8192)
+KERNEL1_BEFORE_MS = {"w64_sequence_tower": (0.0526, 0.0526), "w64_item_tower": (0.1001, 0.1001),
+                     "w128_rank8k": (1.20, 1.22)}
+
+
+def run_train_graph(seed, card):
+    """The training micro-step's CUDA graphs (``training/train_graph.py``) at
+    Recformer-base on the benchmark's training shapes, each step beside the
+    same step run eagerly from the same weights and draws: pretraining at
+    batch 8 and accumulation 8 (views (16, 1024) and (16, 128)) over 24
+    micro-steps, three updates, and fraud training at batch 16 over 5 steps.
+    Every call's metrics, every gradient the optimizer gets and every
+    parameter after each update bitwise equal to the eager step's (both
+    under PyTorch's deterministic algorithms: by default two eager runs
+    differ in the embedding tables' gradients, summed by atomics); one
+    capture, replays = calls - 2, and each call's kernel 1-2 launches as
+    the code says, all on the tensor cores; the step host-timed to the
+    device's end, eager and replayed (median of 5). Then kernel 1's device
+    time a launch from a CUDA graph at dropout 0 (W 64 at (16, 1024) and
+    (256, 128), H 12; W 128 at (32, 8192), H 16, G 0) beside PR 18's, and at
+    W 64 with dropout 0.1, its seed passed as an int and read from device
+    memory."""
+    import copy
+
+    from recformer_tpu_torch.cli.common import init_model_params
+    from recformer_tpu_torch.config import RecformerConfig
+    from recformer_tpu_torch.models.heads import (RecformerForFraudDetection,
+                                                  RecformerForPretraining)
+    from recformer_tpu_torch.ops.window_attention import band_attention
+    from recformer_tpu_torch.training.optimizer import create_optimizer
+    from recformer_tpu_torch.training.steps import make_fraud_train_step, make_pretrain_step
+    from recformer_tpu_torch.training.train_graph import CudaGraphs
+    from recformer_tpu_torch.utils import profiling
+    from recformer_tpu_torch.utils.rng import StepRNG, fold_in
+
+    class Eager(CudaGraphs):
+        def usable(self, device):
+            return False
+
+    dev = torch.device("cuda")
+    cfg = RecformerConfig.base()
+    n_items, layers = 5_000, cfg.num_hidden_layers
+    table = {k: torch.from_numpy(v).to(dev)
+             for k, v in synthetic_table(cfg, n_items, seed).items()}
+    rng = np.random.default_rng(seed + 19)
+    reset_counts()
+    for task, B, accum, calls in (("pretrain", 8, 8, 24), ("fraud", 16, 1, 5)):
+        cls = RecformerForPretraining if task == "pretrain" else RecformerForFraudDetection
+        graphed = init_model_params(cls(cfg), cfg, device="cuda", seed=seed)
+        eager = copy.deepcopy(graphed)
+        sides = []
+        for model, primitive in ((graphed, None), (eager, Eager())):
+            opt = create_optimizer(model, learning_rate=1e-4, warmup_steps=0, total_steps=1000,
+                                   grad_accum_steps=accum)
+            make = make_pretrain_step if task == "pretrain" else make_fraud_train_step
+            step = make(cfg, model, opt)
+            if primitive is not None:
+                step.graphs.primitive = primitive
+            got = {}
+            real = opt.step
+
+            def recorded(real=real, model=model, got=got):
+                got["grads"] = [None if p.grad is None else p.grad.clone()
+                                for p in model.parameters()]
+                return real()
+
+            opt.step = recorded
+            sides.append((model, opt, step, got))
+        batches = []
+        for _ in range(3):
+            ids = torch.from_numpy(rng.integers(0, n_items, size=(B, 50)).astype(np.int32))
+            lens = torch.from_numpy(rng.integers(5, 41, size=B).astype(np.int32))
+            labels = torch.from_numpy((np.arange(B) % 4 == 0).astype(np.int32))
+            batches.append(tuple(t.to(dev) for t in (ids, lens, labels)))
+        valid = torch.ones(B, dtype=torch.bool, device=dev)
+
+        def call(side, k):
+            step = sides[side][2]
+            ids, lens, labels = batches[k % 3]
+            if task == "pretrain":
+                return step(StepRNG(fold_in(seed, k), dev), table, ids, lens)
+            return step(seed, table, ids, lens, labels, valid)
+
+        def same(a, b) -> bool:
+            return all((x is None and y is None) or (x is not None and y is not None
+                                                     and torch.equal(x, y))
+                       for x, y in zip(a, b))
+
+        # PyTorch's default backward of the token-type and item-position
+        # tables (few rows, many duplicate indices) sums by atomics: two eager
+        # runs differ there in the last bits. The comparison runs the
+        # deterministic kernels, on both sides.
+        unequal, deltas = [], []
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for k in range(calls):
+                before = profiling.counters()
+                got = call(0, k)
+                deltas.append(counter_deltas(before, profiling.counters()))
+                want = call(1, k)
+                ok = (got.keys() == want.keys() and same(got.values(), want.values())
+                      and same(sides[0][3]["grads"], sides[1][3]["grads"])
+                      and same(list(graphed.parameters()), list(eager.parameters())))
+                if not ok:
+                    unequal.append(k)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        per_call = 2 * layers if task == "pretrain" else layers
+        launches = {"kernel1.launches": per_call, "kernel1.tensor_core": per_call,
+                    "kernel2.launches": per_call, "kernel2.tensor_core": per_call}
+        expected = [{**launches, "train_graph.eager": 1}, {**launches, "train_graph.captures": 1}]
+        expected += [{**launches, "train_graph.replays": 1}] * (calls - 2)
+        graph_counts = {k: sum(d.get(k, 0) for d in deltas)
+                        for k in ("train_graph.eager", "train_graph.captures",
+                                  "train_graph.replays")}
+        times = {}
+        for name, side in (("replayed", 0), ("eager", 1)):
+            ms = []
+            for k in range(calls, calls + 5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call(side, k)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            times[f"{name}_ms"] = float(np.median(ms))
+        emit("train_graph", task=task, batch=B, accumulation=accum, calls=calls,
+             updates=sides[0][1].updates, unequal_calls=unequal, counts_per_call=deltas,
+             counters=graph_counts, graphs=len(sides[0][2].graphs), **times,
+             speedup=times["eager_ms"] / times["replayed_ms"],
+             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, card=card)
+        if unequal:
+            raise AssertionError(f"train_graph {task}: replayed calls {unequal} not bitwise "
+                                 f"equal to the eager step")
+        if deltas != expected:
+            raise AssertionError(f"train_graph {task}: counts a call {deltas}, "
+                                 f"expected {expected}")
+        del sides, graphed, eager
+        torch.cuda.empty_cache()
+
+    # kernel 1 at dropout 0, and with its seed read from device memory
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    H, D = 12, 64
+    lengths_rng = np.random.default_rng(1)
+    rows = {}
+    slot = torch.tensor([5], dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        for name, (B, L) in BASE_SHAPES.items():
+            ops = band_case(gen, B, L, H, D, 64, torch.bfloat16,
+                            lengths=lengths_rng.integers(L // 4, L + 1, size=B).tolist())
+            common = dict(num_heads=H, window=64, fuse_epilogue=True)
+            rows[f"w64_{name}"] = dict(
+                shape=[B, L, H, D], ms=graph_launch_ms(lambda: band_attention(**ops, **common)),
+                ms_dropout=graph_launch_ms(lambda: band_attention(**ops, **common,
+                                                                  dropout_rate=0.1, seed=5)),
+                ms_dropout_device_seed=graph_launch_ms(
+                    lambda: band_attention(**ops, **common, dropout_rate=0.1, seed=slot)))
+        B, L, H = 32, 8192, 16
+        lengths = [int(x) for x in np.random.default_rng(seed).integers(2700, L + 1, size=B)]
+        ops = mb_band_case(gen, B, L, H, lengths, torch.bfloat16)
+        rows["w128_rank8k"] = dict(shape=[B, L, H, D], ms=graph_launch_ms(
+            lambda: band_attention(**ops, num_heads=H, window=128, fuse_epilogue=True), n=5))
+    for name, row in rows.items():
+        lo, hi = KERNEL1_BEFORE_MS[name]
+        row.update(before_ms=[lo, hi], within_2pct=0.98 * lo <= row["ms"] <= 1.02 * hi)
+        emit("train_graph_kernel1_time", case=name, **row, card=card)
+    counts = read_counts()
+    return {"band_attention_fwd": counts["band_attention_fwd"],
+            "band_attention_fwd_tc": counts["band_attention_fwd_tc"],
+            "band_attention_bwd": counts["band_attention_bwd"],
+            "band_attention_bwd_tc": counts["band_attention_bwd_tc"]}
 
 
 MB_KERNEL_CASES = {  # kernel 1-2 at ModernBERT's local layers: W 128, no global column
@@ -4713,9 +4900,11 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["parallel", "probes", "modernbert"], default=None,
+    ap.add_argument("--only", choices=["parallel", "probes", "modernbert", "train_graph"],
+                    default=None,
                     help="build, then run only the parallel phases (30-36), the probes' "
-                    "(7b, 7c) or kernel_check, kernel_time and modernbert; no result line")
+                    "(7b, 7c), kernel_check, kernel_time and modernbert, or kernel_check "
+                    "and train_graph; no result line")
     # rank mode: this script as one rank of a world that it started itself
     ap.add_argument("--rank-task", choices=["world2", "world4"], help=argparse.SUPPRESS)
     ap.add_argument("--rank-out", help=argparse.SUPPRESS)
@@ -4739,7 +4928,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     # the probes' source under -Xptxas -v (probe_sass), compiled beside the build
     ptxas = None
-    if args.only not in ("parallel", "modernbert"):
+    if args.only not in ("parallel", "modernbert", "train_graph"):
         pool = concurrent.futures.ThreadPoolExecutor(1)
         ptxas = pool.submit(_build.ptxas_report, _build.SOURCES["band_probes"])
         pool.shutdown(wait=False)
@@ -4763,6 +4952,11 @@ def main(argv=None) -> int:
         run_modernbert(args.seed, card)
         emit("command_time", seconds=time.perf_counter() - t_start, limit_seconds=1200)
         return 0
+    if args.only == "train_graph":
+        check_kernels(torch.Generator(device="cuda").manual_seed(args.seed))
+        run_train_graph(args.seed, card)
+        emit("command_time", seconds=time.perf_counter() - t_start, limit_seconds=1200)
+        return 0
     if args.only == "probes":
         check_probes()
         probe_instructions(ptxas.result())
@@ -4781,6 +4975,7 @@ def main(argv=None) -> int:
     probe_times, probe_counts = time_probes(card)
     phases = {"probe_time": probe_counts, "serving": run_serving(args.seed, card),
               "serve_graph": run_serve_graph(args.seed, card),
+              "train_graph": run_train_graph(args.seed, card),
               "encode_embed_kernel": run_encode_embed_kernel(args.seed, card),
               "offline_clis": run_offline_clis(args.seed, card)}
     phases["pretrain_step"], default_rates = run_pretrain_step(args.seed, card)

@@ -100,6 +100,46 @@ class CudaGraphs:
         return graph.replay, out
 
 
+@contextlib.contextmanager
+def taken_back(recorded: Dict[str, int]):
+    """The counts made inside, left in ``recorded`` and taken back as the
+    block ends: a capture's launches reach no card, and each replay adds
+    them again."""
+    before = counters()
+    yield recorded
+    after = counters()
+    recorded.update({k: n - before.get(k, 0) for k, n in after.items()
+                     if n != before.get(k, 0)})
+    for k, n in recorded.items():
+        count(k, -n)
+
+
+class ModelWatch:
+    """What a model's graphs depend on beyond their inputs: the storage of
+    its parameters, listed at the first look, and whether a module carries a
+    mesh (``tp`` or ``sp``)."""
+
+    def __init__(self):
+        self._params: Optional[list] = None
+        self._meshable: Optional[list] = None
+        self._ptrs: Optional[list] = None
+
+    def moved(self, model: torch.nn.Module) -> bool:
+        """Whether any parameter's storage changed since the last look (True
+        at the first)."""
+        if self._params is None:
+            self._params = list(model.parameters())
+        ptrs = [p.data_ptr() for p in self._params]
+        moved, self._ptrs = ptrs != self._ptrs, ptrs
+        return moved
+
+    def meshed(self, model: torch.nn.Module) -> bool:
+        if self._meshable is None:
+            self._meshable = [m for m in model.modules() if hasattr(m, "tp") or hasattr(m, "sp")]
+        return any(getattr(m, "tp", None) is not None or getattr(m, "sp", None) is not None
+                   for m in self._meshable)
+
+
 class _Graph(NamedTuple):
     replay: Callable
     inputs: tuple  # the static buffers
@@ -113,8 +153,7 @@ class ServeGraphs:
 
     def __init__(self, primitive=None):
         self.primitive = primitive if primitive is not None else CudaGraphs()
-        self._params: Optional[list] = None
-        self._meshable: Optional[list] = None
+        self._watch = ModelWatch()
         self._clear()
 
     def __reduce__(self):  # a copy or a pickle of the model starts with no graphs
@@ -124,7 +163,6 @@ class ServeGraphs:
         self._graphs: Dict[tuple, _Graph] = {}
         self._seen: set = set()
         self._pool = None
-        self._ptrs: Optional[list] = None
 
     def __len__(self) -> int:
         return len(self._graphs)
@@ -133,10 +171,11 @@ class ServeGraphs:
         """``forward(*inputs)``, a call of ``model``'s backbone without
         gradients or dropout, through a graph where the call qualifies."""
         device = inputs[0].device
-        if not self.primitive.usable(device) or self._meshed(model):
+        if not self.primitive.usable(device) or self._watch.meshed(model):
             count("serve_graph.eager")
             return forward(*inputs)
-        self._check_params(model)
+        if self._watch.moved(model):
+            self._clear()
         key = (device, torch.is_inference_mode_enabled(),
                tuple(None if x is None else (tuple(x.shape), x.dtype) for x in inputs))
         graph = self._graphs.get(key)
@@ -148,20 +187,6 @@ class ServeGraphs:
             return forward(*inputs)
         return self._capture(key, forward, inputs, device)
 
-    def _meshed(self, model) -> bool:
-        if self._meshable is None:
-            self._meshable = [m for m in model.modules() if hasattr(m, "tp") or hasattr(m, "sp")]
-        return any(getattr(m, "tp", None) is not None or getattr(m, "sp", None) is not None
-                   for m in self._meshable)
-
-    def _check_params(self, model):
-        if self._params is None:
-            self._params = list(model.parameters())
-        ptrs = [p.data_ptr() for p in self._params]
-        if ptrs != self._ptrs:
-            self._clear()
-            self._ptrs = ptrs
-
     def _capture(self, key, forward, inputs, device) -> tuple:
         prim = self.primitive
         if self._pool is None:
@@ -169,12 +194,8 @@ class ServeGraphs:
         with prim.side_stream(device):
             out = forward(*inputs)  # the warm-up, and this call's answer
             static = tuple(None if x is None else x.clone() for x in inputs)
-            before = counters()
-            replay, static_out = prim.capture(forward, static, self._pool, device)
-            after = counters()
-        recorded = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
-        for k, n in recorded.items():  # nothing reached the card
-            count(k, -n)
+            with taken_back({}) as recorded:
+                replay, static_out = prim.capture(forward, static, self._pool, device)
         self._graphs[key] = _Graph(replay, static, static_out, recorded)
         count("serve_graph.captures")
         return out

@@ -49,7 +49,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
-_DROPOUT = [_I, _U, _U, _F]  # on, seed, threshold, 1/(1-rate)
+_DROPOUT = [_I, _U, _P, _U, _F]  # on, seed, where the seed lies, threshold, 1/(1-rate)
 # C signatures, by library name, then function name: (argtypes, restype)
 SIGNATURES = {
     "band_attention_fwd": {

@@ -141,6 +141,7 @@ band_bwd_query_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
                       T* __restrict__ dq, float* __restrict__ stats, float* __restrict__ ws,
                       int B, int L, int H, int G, int window, int tile_q, float q_scale,
                       float dq_scale, int fuse, Dropout drop) {
+  drop = band::resolve(drop);
   constexpr int DP = D + 1;
   const int HD = H * D;
   const int half = window / 2;
@@ -325,6 +326,7 @@ band_bwd_key_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const T* __restrict__ dout, const float* __restrict__ stats,
                     T* __restrict__ dk, T* __restrict__ dv, int L, int H, int window,
                     float q_scale, int fuse, Dropout drop) {
+  drop = band::resolve(drop);
   constexpr int DP = D + 1;
   const int HD = H * D;
   const int half = window / 2;
@@ -514,6 +516,7 @@ band_bwd_query_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          float* __restrict__ stats, float* __restrict__ ws, int B, int L, int H,
                          int G, float q_scale, float dq_scale, int fuse, Dropout drop) {
   using namespace tcb;
+  drop = band::resolve(drop);
   const int HD = H * D;
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -860,6 +863,7 @@ band_bwd_key_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        bf16* __restrict__ dv, int L, int H, float q_scale, int fuse,
                        Dropout drop) {
   using namespace tcb;
+  drop = band::resolve(drop);
   const int HD = H * D;
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -1154,19 +1158,23 @@ extern "C" int band_attention_bwd_path(int dtype, int D, int G, int window) {
   return tc_shape(dtype, D, G, window) ? 1 : 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the first failing launch's
-// cudaError_t, or 0. The tensor-core passes take 16-byte aligned operands
-// and return cudaErrorMisalignedAddress otherwise.
+// dtype: 0 = float32, 1 = bfloat16. The dropout seed is ``seed``, or the one
+// at ``seed_at`` in device memory where that is not null (band_common.cuh).
+// Returns the first failing launch's cudaError_t, or 0. The tensor-core
+// passes take 16-byte aligned operands and return cudaErrorMisalignedAddress
+// otherwise.
 extern "C" int band_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                   const void* keyloc, const void* gk, const void* gv,
                                   const void* gvalid, const void* mrow, const void* dout,
                                   void* dq, void* dk, void* dv, void* dg, void* stats, void* ws,
                                   int B, int L, int H, int D, int G, int window, float q_scale,
                                   float dq_scale, int fuse_epilogue, int dropout, uint32_t seed,
-                                  uint32_t threshold, float drop_scale, void* stream) {
+                                  const void* seed_at, uint32_t threshold, float drop_scale,
+                                  void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || G < 0 || window <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dropout drop{seed, threshold, drop_scale, dropout != 0};
+  const Dropout drop{seed, threshold, drop_scale, dropout != 0,
+                     static_cast<const uint32_t*>(seed_at)};
   float* dgf = static_cast<float*>(dg);
   float* stf = static_cast<float*>(stats);
   float* wsf = static_cast<float*>(ws);

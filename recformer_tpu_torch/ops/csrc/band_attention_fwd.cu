@@ -67,6 +67,7 @@ band_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const int32_t* __restrict__ mrow, const T* __restrict__ gout,
                           T* __restrict__ out, int L, int H, int G, int window,
                           int tile_q, float scale, int fuse_epilogue, Dropout drop) {
+  drop = band::resolve(drop);
   constexpr int DP = D + 1;  // padded row stride (in floats) of the K/V band
   const int HD = H * D;
   const int half = window / 2;
@@ -271,6 +272,7 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ gout,
                              __nv_bfloat16* __restrict__ out, int L, int H, int G, float scale,
                              int fuse_epilogue, Dropout drop) {
+  drop = band::resolve(drop);
   using T = Tc<W_>;
   constexpr int D = T::D, W = T::W, HALF = T::HALF, TILE = T::TILE, BAND = T::BAND;
   constexpr int NT = T::NT, GPAD = T::GPAD, S = T::S, CH = T::CH;
@@ -557,18 +559,21 @@ extern "C" int band_attention_fwd_path(int dtype, int D, int G, int window) {
 
 // dtype: 0 = float32, 1 = bfloat16; G = 0 means no global column (gk, gv,
 // gvalid and gout are then never read). Dropout (band_common.cuh) is on when
-// ``dropout`` is non-zero. Returns the launch's cudaError_t. The tensor-core
-// kernel takes 16-byte aligned operands and returns
+// ``dropout`` is non-zero; its seed is ``seed``, or the one at ``seed_at`` in
+// device memory where that is not null. Returns the launch's cudaError_t.
+// The tensor-core kernel takes 16-byte aligned operands and returns
 // cudaErrorMisalignedAddress otherwise.
 extern "C" int band_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                   const void* keyloc, const void* gk, const void* gv,
                                   const void* gvalid, const void* mrow, const void* gout,
                                   void* out, int B, int L, int H, int D, int G, int window,
                                   float scale, int fuse_epilogue, int dropout, uint32_t seed,
-                                  uint32_t threshold, float drop_scale, void* stream) {
+                                  const void* seed_at, uint32_t threshold, float drop_scale,
+                                  void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || G < 0 || window <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dropout drop{seed, threshold, drop_scale, dropout != 0};
+  const Dropout drop{seed, threshold, drop_scale, dropout != 0,
+                     static_cast<const uint32_t*>(seed_at)};
   if (tc_shape(dtype, D, G, window)) {
     for (const void* p : {q, k, v, static_cast<const void*>(out)})
       if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;

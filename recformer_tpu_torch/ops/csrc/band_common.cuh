@@ -47,12 +47,24 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Attention-dropout parameters of one call; ``on == 0`` keeps everything.
+// A launch recorded in a CUDA graph whose replays each take a fresh seed
+// passes ``seed_at``, where the seed lies in device memory (written before
+// each replay); every other launch passes the seed itself and a null
+// ``seed_at``.
 struct Dropout {
   uint32_t seed;
   uint32_t threshold;  // floor(rate * 2^32)
   float scale;         // 1 / (1 - rate), rounded to float32 once on the host
   int on;
+  const uint32_t* seed_at;
 };
+
+// The call's parameters with the seed read from ``seed_at`` where one is
+// given: each kernel resolves them once, as it starts.
+__device__ __forceinline__ Dropout resolve(Dropout d) {
+  if (d.on && d.seed_at != nullptr) d.seed = *d.seed_at;
+  return d;
+}
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;

@@ -311,10 +311,16 @@ def _check(q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, num_heads):
             [t.to(torch.int32).contiguous() for t in (keyloc, gvalid, mrow)])
 
 
-def _dropout_args(rate: float, seed: int):
+def _dropout_args(rate: float, seed):
+    """The C interface's dropout arguments. ``seed`` is an int, or a
+    one-element int32 device tensor that the kernel reads as it starts (a
+    slot that a CUDA graph's replays refill)."""
     if rate <= 0.0:
-        return [0, 0, 0, ctypes.c_float(1.0)]
-    return [1, int(seed) & _MASK32, dropout_threshold(rate), ctypes.c_float(_drop_scale(rate))]
+        return [0, 0, None, 0, ctypes.c_float(1.0)]
+    if torch.is_tensor(seed):
+        return [1, 0, _ptr(seed), dropout_threshold(rate), ctypes.c_float(_drop_scale(rate))]
+    return [1, int(seed) & _MASK32, None, dropout_threshold(rate),
+            ctypes.c_float(_drop_scale(rate))]
 
 
 @spanned("launch.kernel1")
@@ -456,11 +462,16 @@ def band_attention(q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, num_heads: in
     """The forward kernel's wrapper over ``(B, L, H*D)`` operands (arguments
     as in :func:`window_attention_plain`), differentiable through the
     backward kernel. CPU tensors take the plain versions; CUDA tensors launch
-    the kernels or raise. ``out``, when given, is this call's output from an
-    earlier run on the same inputs (a recomputed forward): it is returned
-    with the same backward, and the forward kernel is not launched."""
+    the kernels or raise. ``seed`` is an int, or a one-element int32 tensor
+    on the operands' device holding it (:func:`draw_seed`'s slots), which
+    both kernels read when they run. ``out``, when given, is this call's
+    output from an earlier run on the same inputs (a recomputed forward): it
+    is returned with the same backward, and the forward kernel is not
+    launched."""
+    if not torch.is_tensor(seed):
+        seed = int(seed)
     return _BandCore.apply(q2, k2, v2, keyloc, gk, gv, gvalid, mrow, gout, num_heads,
-                           window, bool(fuse_epilogue), float(dropout_rate), int(seed), out)
+                           window, bool(fuse_epilogue), float(dropout_rate), seed, out)
 
 
 def prepare_band_inputs(q, k, v, mask, max_globals: int = 1):
@@ -505,9 +516,14 @@ def local_window_attention(q, k, v, key_mask, window: int):
     return out.view(B, L, H, D)
 
 
-def draw_seed(host_generator: torch.Generator) -> int:
-    """One kernel dropout seed from a CPU generator (no device sync)."""
-    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=host_generator))
+def draw_seed(host_generator):
+    """One kernel dropout seed from a CPU generator (no device sync). Any
+    other object hands out its own seed through its ``draw_seed()``: the
+    seed slots and records of ``training/train_graph.py``, whose seeds are
+    still drawn here, from the step's generator, in the same order."""
+    if isinstance(host_generator, torch.Generator):
+        return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=host_generator))
+    return host_generator.draw_seed()
 
 
 def window_attention(q, k, v, q_g, k_g, v_g, mask, window: int, max_globals: int = 1,

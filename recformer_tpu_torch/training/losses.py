@@ -58,7 +58,7 @@ def info_nce_loss(z1: torch.Tensor, z2: torch.Tensor, temp: float, group=None,
     logp = torch.log_softmax(sim, dim=-1)
     loss = -logp.diagonal().mean()
     correct = (sim.argmax(dim=1) == labels).sum().float()
-    total = torch.tensor(float(sim.shape[0]), device=sim.device)
+    total = sim.new_full((), float(sim.shape[0]))  # filled on the device: no copy to capture
     return loss, correct, total
 
 

@@ -48,10 +48,11 @@ from ..data.device_pipeline import assemble_for_config, make_finetune_batch, mak
 from ..models.heads import similarity_scores
 from ..parallel.catalog import sharded_full_softmax_loss, sharded_take
 from ..parallel.collectives import all_reduce_, psum
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from ..utils.rng import StepRNG, fold_in
 from . import losses
 from .metrics import MAX_VAL, rank_from_scores
+from .train_graph import TrainGraphs
 
 
 def pretrain_loss(config: RecformerConfig, out, batch_a, batch_b, group=None,
@@ -175,13 +176,23 @@ def make_pretrain_step(config: RecformerConfig, model, optimizer, mesh=None):
     one optimizer micro-step. ``rng`` is a
     :class:`~recformer_tpu_torch.utils.rng.StepRNG`. Under a mesh the ids
     are the global batch's, and ``rng.seed`` is the step's seed (see the
-    module's docstring for the two modes)."""
+    module's docstring for the two modes). Without one, everything before
+    the optimizer goes through ``step.graphs``, a
+    :class:`~.train_graph.TrainGraphs` that replays it as a CUDA graph
+    where the call allows it."""
+    graphs = TrainGraphs(model)
+
+    def micro_step(rng, table, item_ids, seq_lens) -> Dict[str, torch.Tensor]:
+        batch_a, batch_b = make_pretrain_batch(rng.device, table, item_ids, seq_lens, config)
+        return pretrain_backward(config, model, batch_a, batch_b, rng)
 
     def step(rng, table, item_ids, seq_lens) -> Dict[str, torch.Tensor]:
         if mesh is None:
-            batch_a, batch_b = make_pretrain_batch(rng.device, table, item_ids, seq_lens, config)
-            drop = rng
-        elif config.contrastive_gradient == "full":
+            metrics = graphs(micro_step, rng, (table, item_ids, seq_lens))
+            optimizer.step()
+            return metrics
+        count("train_graph.eager")
+        if config.contrastive_gradient == "full":
             batch_a, batch_b = (take_rows(b, mesh) for b in make_pretrain_batch(
                 rng.device, table, item_ids, seq_lens, config))
             drop = StepRNG(fold_in(rng.seed, mesh.data_rank), item_ids.device)
@@ -193,6 +204,7 @@ def make_pretrain_step(config: RecformerConfig, model, optimizer, mesh=None):
         optimizer.step()
         return metrics
 
+    step.graphs = graphs
     return step
 
 
@@ -347,18 +359,25 @@ def make_fraud_train_step(config: RecformerConfig, model, optimizer):
     batch on the device, the fraud model with dropout (the backbone's and
     the head's), :func:`fraud_loss`, its backward and one optimizer
     micro-step. The draws come from ``fold_in(seed, micro-step)``, as in
-    :func:`make_finetune_step`."""
+    :func:`make_finetune_step`. Everything before the optimizer goes
+    through ``step.graphs``, as in :func:`make_pretrain_step`."""
+    graphs = TrainGraphs(model)
 
-    def step(seed, table, item_ids, seq_lens, labels, valid) -> Dict[str, torch.Tensor]:
-        rng = StepRNG(fold_in(seed, optimizer.micro_steps), item_ids.device)
+    def micro_step(rng, table, item_ids, seq_lens, labels, valid) -> Dict[str, torch.Tensor]:
         batch = assemble_for_config(table, item_ids, seq_lens, config)
         with span("forward"):
             loss = fraud_loss(config, model(batch, deterministic=False, rng=rng), labels, valid)
         with span("backward"):
             loss.backward()
-        optimizer.step()
         return {"loss": loss.detach()}
 
+    def step(seed, table, item_ids, seq_lens, labels, valid) -> Dict[str, torch.Tensor]:
+        rng = StepRNG(fold_in(seed, optimizer.micro_steps), item_ids.device)
+        metrics = graphs(micro_step, rng, (table, item_ids, seq_lens, labels, valid))
+        optimizer.step()
+        return metrics
+
+    step.graphs = graphs
     return step
 
 

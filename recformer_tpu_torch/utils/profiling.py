@@ -34,7 +34,9 @@ launches, ``kernel<N>.launches``, ``kernel1.tensor_core`` and
 and ``headpair.launches``; the full-attention op's ``global_attn.launches``
 and ``global_attn.fused`` (those on a fused backend); the backbone's CUDA graphs for serving
 (``models/serve_graph.py``), ``serve_graph.captures``,
-``serve_graph.replays`` and ``serve_graph.eager``. A replayed graph adds
+``serve_graph.replays`` and ``serve_graph.eager``; the training
+micro-step's (``training/train_graph.py``), ``train_graph.captures``,
+``train_graph.replays`` and ``train_graph.eager``. A replayed graph adds
 the launch counts its capture recorded.
 """
 

@@ -29,7 +29,7 @@ def test_importing_every_module_loads_no_jax():
                  "examples.synthetic_end_to_end", "parallel.mesh", "parallel.collectives",
                  "parallel.catalog", "parallel.tensor", "parallel.dryrun", "cli.pretrain",
                  "cli.serve", "parallel.sequence", "parallel.pipeline", "ops.full_attention",
-                 "models.modernbert", "reference.modernbert"):
+                 "models.modernbert", "reference.modernbert", "training.train_graph"):
         assert f"recformer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -66,7 +66,8 @@ def test_sources_name_no_jax():
             "transactional.py", "synthetic_transactions.py", "batcher.cpp", "tokenizer.cpp",
             "synthetic.py", "clustering.py", "cluster.py", "amazon.py", "profiling.py",
             "synthetic_end_to_end.py", "mesh.py", "collectives.py", "catalog.py", "tensor.py",
-            "dryrun.py", "pretrain.py", "serve.py", "full_attention.py", "modernbert.py"} <= names
+            "dryrun.py", "pretrain.py", "serve.py", "full_attention.py", "modernbert.py",
+            "train_graph.py"} <= names
     for path in sources:
         with open(path) as f:
             text = f.read()
