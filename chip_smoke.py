@@ -271,7 +271,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     on a fused backend. ``python3 chip_smoke.py --only modernbert`` builds,
     runs kernel_check and kernel_time, then this phase (no result line).
 38. train_graph (run after serve_graph): the training micro-step's CUDA
-    graphs (``training/train_graph.py``) at Recformer-base, pretraining at
+    graphs (``utils/graphs.py``, ``training/steps.py``) at Recformer-base, pretraining at
     batch 8 and accumulation 8 over 24 micro-steps and fraud training at
     batch 16 over 5 steps, each beside the eager step from the same weights
     and draws: every call's metrics, every gradient the optimizer gets and
@@ -1386,7 +1386,7 @@ def counter_deltas(before: dict, after: dict) -> dict:
 
 
 def run_serve_graph(seed, card):
-    """The backbone's CUDA graphs for serving (``models/serve_graph.py``) at
+    """The backbone's CUDA graphs for serving (``utils/graphs.py``) at
     Recformer-base on the benchmark's serving shapes: a rank request's
     (32, 1024) under ``no_grad`` and an encode chunk's (256, 128) under
     ``inference_mode``. The eager call, the capturing call and two replays
@@ -1484,7 +1484,7 @@ KERNEL1_BEFORE_MS = {"w64_sequence_tower": (0.0526, 0.0526), "w64_item_tower": (
 
 
 def run_train_graph(seed, card):
-    """The training micro-step's CUDA graphs (``training/train_graph.py``) at
+    """The training micro-step's CUDA graphs (``utils/graphs.py``) at
     Recformer-base on the benchmark's training shapes, each step beside the
     same step run eagerly from the same weights and draws: pretraining at
     batch 8 and accumulation 8 (views (16, 1024) and (16, 128)) over 24
@@ -1509,7 +1509,7 @@ def run_train_graph(seed, card):
     from recformer_tpu_torch.ops.window_attention import band_attention
     from recformer_tpu_torch.training.optimizer import create_optimizer
     from recformer_tpu_torch.training.steps import make_fraud_train_step, make_pretrain_step
-    from recformer_tpu_torch.training.train_graph import CudaGraphs
+    from recformer_tpu_torch.utils.graphs import CudaGraphs
     from recformer_tpu_torch.utils import profiling
     from recformer_tpu_torch.utils.rng import StepRNG, fold_in
 

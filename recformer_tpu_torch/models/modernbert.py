@@ -34,7 +34,7 @@ type; every LayerNorm takes float32 two-pass statistics and returns the
 compute type; RoPE multiplies in the compute type, as ModernBERT does, from
 float32 tables cast once. The tables are built once per (length, theta,
 device, dtype) and kept on the module, outside any CUDA-graph capture (a
-signature's first call runs eagerly, ``models/serve_graph.py``).
+signature's first call runs eagerly, ``utils/graphs.py``).
 
 No dropout (ModernBERT's are 0; the config refuses others) and no tensor,
 sequence or pipeline parallelism. Under ``remat`` each layer runs under

@@ -6,8 +6,8 @@ backbone is ``models/modernbert.py``. Batches are padded to
 a static length that is a multiple of the attention window; the {0,1} x
 {0,1} masks merge into {0 none, 1 local, 2 global}. A call without
 gradients and without dropout (serving, evaluation, catalog encoding) goes
-through the model's :class:`~.serve_graph.ServeGraphs`, which replays a CUDA
-graph of the same forward where the call allows it.
+through the model's :class:`~recformer_tpu_torch.utils.graphs.Graphs`, which
+replays a CUDA graph of the same forward where the call allows it.
 """
 
 from __future__ import annotations
@@ -16,10 +16,10 @@ import torch
 from torch import nn
 
 from ..config import RecformerConfig
+from ..utils.graphs import Graphs
 from ..utils.profiling import spanned
 from .embeddings import RecformerEmbeddings
 from .encoder import LongformerEncoder
-from .serve_graph import ServeGraphs
 
 
 def merge_attention_masks(attention_mask: torch.Tensor, global_attention_mask: torch.Tensor):
@@ -44,12 +44,12 @@ class RecformerPooler(nn.Module):
 class Backbone(nn.Module):
     """What every backbone shares: the forward's dispatch between
     :meth:`forward_eager`, which each backbone defines, and its
-    :class:`~.serve_graph.ServeGraphs`."""
+    :class:`~recformer_tpu_torch.utils.graphs.Graphs`."""
 
     def __init__(self, config: RecformerConfig):
         super().__init__()
         self.config = config
-        self.serve_graphs = ServeGraphs()
+        self.serve_graphs = Graphs("serve_graph")
 
     @spanned("forward.encoder")
     def forward(self, input_ids, attention_mask, global_attention_mask, token_type_ids,

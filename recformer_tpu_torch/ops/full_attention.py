@@ -18,7 +18,7 @@ On CPU tensors the op is the plain masked softmax,
 Counters (``utils/profiling.py``): ``global_attn.launches`` counts the CUDA
 calls and ``global_attn.fused`` those for which PyTorch's backend choice,
 asked under the same restriction, names a fused backend; a replayed CUDA
-graph adds the counts its capture recorded (``models/serve_graph.py``). The
+graph adds the counts its capture recorded (``utils/graphs.py``). The
 span ``launch.global_attn`` covers the wrapper in eager and capturing calls.
 A hand-written Hopper kernel for this op is left for later work.
 """

@@ -519,7 +519,7 @@ def local_window_attention(q, k, v, key_mask, window: int):
 def draw_seed(host_generator):
     """One kernel dropout seed from a CPU generator (no device sync). Any
     other object hands out its own seed through its ``draw_seed()``: the
-    seed slots and records of ``training/train_graph.py``, whose seeds are
+    seed slots and records of ``training/steps.py``, whose seeds are
     still drawn here, from the step's generator, in the same order."""
     if isinstance(host_generator, torch.Generator):
         return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=host_generator))

@@ -38,7 +38,8 @@ their gradients with :func:`model_axis_backward`.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import contextlib
+from typing import Dict, List, NamedTuple, Sequence
 
 import torch
 import torch.distributed as dist
@@ -46,13 +47,14 @@ import torch.distributed as dist
 from ..config import RecformerConfig
 from ..data.device_pipeline import assemble_for_config, make_finetune_batch, make_pretrain_batch
 from ..models.heads import similarity_scores
+from ..ops.window_attention import draw_seed
 from ..parallel.catalog import sharded_full_softmax_loss, sharded_take
 from ..parallel.collectives import all_reduce_, psum
-from ..utils.profiling import count, span
+from ..utils.graphs import Graphs
+from ..utils.profiling import span
 from ..utils.rng import StepRNG, fold_in
 from . import losses
 from .metrics import MAX_VAL, rank_from_scores
-from .train_graph import TrainGraphs
 
 
 def pretrain_loss(config: RecformerConfig, out, batch_a, batch_b, group=None,
@@ -170,6 +172,128 @@ def model_axis_backward(config: RecformerConfig, model, out, batch_a, batch_b, m
     return {k: v.detach() for k, v in metrics.items()}
 
 
+class SeedRecord:
+    """Kernel seeds drawn from ``generator`` as :func:`draw_seed` draws them,
+    each kept: the warm-up counts the micro-step's seeds."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.drawn: List[int] = []
+
+    def draw_seed(self) -> int:
+        seed = draw_seed(self.generator)
+        self.drawn.append(seed)
+        return seed
+
+
+class SeedSlots:
+    """One graph's kernel seeds in device memory: ``draw_seed()`` hands out
+    the slots in turn (the captured launches read them as they run) and
+    :meth:`load` fills them for the next run, which takes them from the
+    first."""
+
+    def __init__(self, n: int, device: torch.device):
+        self.values = torch.zeros(n, dtype=torch.int32, device=device)
+        self.taken = 0
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    def draw_seed(self) -> torch.Tensor:
+        i = self.taken
+        self.taken += 1
+        return self.values[i:i + 1]
+
+    def load(self, seeds: Sequence[int]) -> None:
+        host = torch.tensor(seeds, dtype=torch.int32, pin_memory=self.values.is_cuda)
+        self.values.copy_(host, non_blocking=True)
+        self.taken = 0
+
+
+class _Streams(NamedTuple):
+    """A micro-step's generators, in the shape of a ``StepRNG``."""
+    seed: int
+    host: object  # a torch.Generator, SeedRecord or SeedSlots
+    device: torch.Generator
+
+
+class _Kept(NamedTuple):
+    names: tuple  # the metrics' names; the static outputs are the metrics, then the gradients
+    params: list  # the trained parameters
+    seeds: SeedSlots
+
+
+class StepGraphs(Graphs):
+    """A training step's graphs of its micro-step ``micro(rng, *inputs)``,
+    which leaves its gradients in the parameters' ``.grad`` and returns its
+    metrics (``utils/graphs.py``). A replay draws what the eager micro-step
+    draws, value for value:
+
+    - the device draws (pairs, MLM, each dropout mask) come from one
+      persistent generator of the card, registered with every graph. Before
+      a replay it takes the seed and offset at which the step's
+      ``rng.device`` stands, and the replay gives each drawing operation the
+      offset its eager call would have had (PyTorch's graph-safe Philox
+      state); after it, ``rng.device`` moves on by the graph's whole
+      increment;
+    - the attention kernels' seeds are drawn on the host as before, with
+      :func:`draw_seed` from ``rng.host``, as many and in the order the
+      eager micro-step draws them (the warm-up counts them). They reach the
+      kernels through a :class:`SeedSlots`, refilled before each replay by
+      a non-blocking copy from pinned memory.
+
+    The capture leaves the step's generators where the warm-up left them.
+    A replay points every trained parameter's ``.grad`` at the graph's
+    static gradient (the optimizer sets ``.grad`` to None after each step)."""
+
+    @contextlib.contextmanager
+    def _capturing(self, model, micro, args, inputs, device):
+        (rng,) = args
+        if self._generator is None:
+            self._generator = self.primitive.new_generator(device)
+        params = [p for p in model.parameters() if p.requires_grad]
+        record = SeedRecord(rng.host)
+        metrics = micro(_Streams(rng.seed, record, rng.device), *inputs)  # the warm-up
+        answer = [p.grad for p in params]
+        for p in params:  # the graph writes its own gradients
+            p.grad = None
+        seeds = SeedSlots(len(record.drawn), device)
+        streams = _Streams(rng.seed, seeds, self._generator)
+        names = tuple(metrics)
+
+        def run(*inputs):
+            out = micro(streams, *inputs)
+            return tuple(out[n] for n in names) + tuple(p.grad for p in params)
+
+        yield metrics, run, _Kept(names, params, seeds)
+        for p, g in zip(params, answer):
+            p.grad = g
+        if seeds.taken != len(seeds):
+            raise RuntimeError(f"the captured micro-step drew {seeds.taken} kernel seeds, "
+                               f"the eager one {len(seeds)}")
+
+    def _replayed(self, graph, args) -> Dict[str, torch.Tensor]:
+        (rng,) = args
+        names, params, seeds = graph.kept
+        if len(seeds):
+            seeds.load([draw_seed(rng.host) for _ in range(len(seeds))])
+        self._generator.set_state(rng.device.get_state())
+        graph.replay()
+        rng.device.set_state(self._generator.get_state())
+        for p, g in zip(params, graph.outputs[len(names):]):
+            p.grad = g
+        return {n: m.clone() for n, m in zip(names, graph.outputs)}
+
+
+def _graphable(model) -> bool:
+    """Whether a single-device micro-step may replay: gradients on, no
+    activation recomputation (it re-sets the generators inside the
+    backward) and no gradient held (a graph writes its gradients; it does
+    not add to them)."""
+    return (torch.is_grad_enabled() and not model.config.remat
+            and all(p.grad is None for p in model.parameters()))
+
+
 def make_pretrain_step(config: RecformerConfig, model, optimizer, mesh=None):
     """step(rng, table, item_ids, seq_lens) -> metrics: device-side pair
     sampling and MLM, the two towers with dropout, the loss, its backward and
@@ -177,21 +301,14 @@ def make_pretrain_step(config: RecformerConfig, model, optimizer, mesh=None):
     :class:`~recformer_tpu_torch.utils.rng.StepRNG`. Under a mesh the ids
     are the global batch's, and ``rng.seed`` is the step's seed (see the
     module's docstring for the two modes). Without one, everything before
-    the optimizer goes through ``step.graphs``, a
-    :class:`~.train_graph.TrainGraphs` that replays it as a CUDA graph
-    where the call allows it."""
-    graphs = TrainGraphs(model)
+    the optimizer goes through ``step.graphs``, a :class:`StepGraphs` that
+    replays it as a CUDA graph where the call allows it."""
+    graphs = StepGraphs("train_graph")
 
     def micro_step(rng, table, item_ids, seq_lens) -> Dict[str, torch.Tensor]:
-        batch_a, batch_b = make_pretrain_batch(rng.device, table, item_ids, seq_lens, config)
-        return pretrain_backward(config, model, batch_a, batch_b, rng)
-
-    def step(rng, table, item_ids, seq_lens) -> Dict[str, torch.Tensor]:
         if mesh is None:
-            metrics = graphs(micro_step, rng, (table, item_ids, seq_lens))
-            optimizer.step()
-            return metrics
-        count("train_graph.eager")
+            batch_a, batch_b = make_pretrain_batch(rng.device, table, item_ids, seq_lens, config)
+            return pretrain_backward(config, model, batch_a, batch_b, rng)
         if config.contrastive_gradient == "full":
             batch_a, batch_b = (take_rows(b, mesh) for b in make_pretrain_batch(
                 rng.device, table, item_ids, seq_lens, config))
@@ -200,7 +317,11 @@ def make_pretrain_step(config: RecformerConfig, model, optimizer, mesh=None):
             drop = StepRNG(fold_in(rng.seed, mesh.data_rank), item_ids.device)
             batch_a, batch_b = make_pretrain_batch(drop.device, table, take_rows(item_ids, mesh),
                                                    take_rows(seq_lens, mesh), config)
-        metrics = pretrain_backward(config, model, batch_a, batch_b, drop, mesh)
+        return pretrain_backward(config, model, batch_a, batch_b, drop, mesh)
+
+    def step(rng, table, item_ids, seq_lens) -> Dict[str, torch.Tensor]:
+        metrics = graphs(model, micro_step, (table, item_ids, seq_lens), rng,
+                         graphed=mesh is None and _graphable(model))
         optimizer.step()
         return metrics
 
@@ -361,7 +482,7 @@ def make_fraud_train_step(config: RecformerConfig, model, optimizer):
     micro-step. The draws come from ``fold_in(seed, micro-step)``, as in
     :func:`make_finetune_step`. Everything before the optimizer goes
     through ``step.graphs``, as in :func:`make_pretrain_step`."""
-    graphs = TrainGraphs(model)
+    graphs = StepGraphs("train_graph")
 
     def micro_step(rng, table, item_ids, seq_lens, labels, valid) -> Dict[str, torch.Tensor]:
         batch = assemble_for_config(table, item_ids, seq_lens, config)
@@ -373,7 +494,8 @@ def make_fraud_train_step(config: RecformerConfig, model, optimizer):
 
     def step(seed, table, item_ids, seq_lens, labels, valid) -> Dict[str, torch.Tensor]:
         rng = StepRNG(fold_in(seed, optimizer.micro_steps), item_ids.device)
-        metrics = graphs(micro_step, rng, (table, item_ids, seq_lens, labels, valid))
+        metrics = graphs(model, micro_step, (table, item_ids, seq_lens, labels, valid), rng,
+                         graphed=_graphable(model))
         optimizer.step()
         return metrics
 

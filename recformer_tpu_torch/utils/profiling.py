@@ -32,12 +32,12 @@ Counters (:func:`count`) are host integers and always on: the kernels'
 launches, ``kernel<N>.launches``, ``kernel1.tensor_core`` and
 ``kernel2.tensor_core`` (those on the tensor cores), ``ablation.launches``
 and ``headpair.launches``; the full-attention op's ``global_attn.launches``
-and ``global_attn.fused`` (those on a fused backend); the backbone's CUDA graphs for serving
-(``models/serve_graph.py``), ``serve_graph.captures``,
-``serve_graph.replays`` and ``serve_graph.eager``; the training
-micro-step's (``training/train_graph.py``), ``train_graph.captures``,
-``train_graph.replays`` and ``train_graph.eager``. A replayed graph adds
-the launch counts its capture recorded.
+and ``global_attn.fused`` (those on a fused backend); the CUDA graphs'
+(``utils/graphs.py``), the backbone's for serving ``serve_graph.captures``,
+``serve_graph.replays`` and ``serve_graph.eager``, and the training
+micro-step's ``train_graph.captures``, ``train_graph.replays`` and
+``train_graph.eager``. A replayed graph adds the launch counts its capture
+recorded.
 """
 
 from __future__ import annotations

@@ -29,7 +29,7 @@ def test_importing_every_module_loads_no_jax():
                  "examples.synthetic_end_to_end", "parallel.mesh", "parallel.collectives",
                  "parallel.catalog", "parallel.tensor", "parallel.dryrun", "cli.pretrain",
                  "cli.serve", "parallel.sequence", "parallel.pipeline", "ops.full_attention",
-                 "models.modernbert", "reference.modernbert", "training.train_graph"):
+                 "models.modernbert", "reference.modernbert", "utils.graphs"):
         assert f"recformer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -53,8 +53,7 @@ def test_sources_name_no_jax():
     sources = [os.path.join(d, f) for d, _, fs in os.walk(PKG_DIR) for f in fs
                if f.endswith((".py", ".cu", ".cuh", ".cpp")) and "_build" not in d.split(os.sep)]
     sources += [os.path.join(REPO, p) for p in (
-        "chip_smoke.py", "scripts/profile_torch_serving.py", "scripts/profile_torch_pretrain.py",
-        "scripts/profile_torch_ln_bwd.py", "scripts/profile_torch_finetune.py")]
+        "chip_smoke.py", "scripts/profile_torch_ln_bwd.py")]
     assert len(sources) > 20
     names = {os.path.basename(p) for p in sources}
     assert {"embed_layernorm.cu", "layernorm_bwd.cu", "row_reduce.cuh", "layernorm.py",
@@ -62,12 +61,12 @@ def test_sources_name_no_jax():
             "hopper_tma.cuh",
             "kernel_ablation.py", "headpair_probe.py", "encode_items.py", "evaluate_seq.py",
             "timing.py", "finetune.py", "checkpoint.py", "logging.py",
-            "profile_torch_finetune.py", "finetune_classification.py", "convert_ckpt.py",
+            "finetune_classification.py", "convert_ckpt.py",
             "transactional.py", "synthetic_transactions.py", "batcher.cpp", "tokenizer.cpp",
             "synthetic.py", "clustering.py", "cluster.py", "amazon.py", "profiling.py",
             "synthetic_end_to_end.py", "mesh.py", "collectives.py", "catalog.py", "tensor.py",
             "dryrun.py", "pretrain.py", "serve.py", "full_attention.py", "modernbert.py",
-            "train_graph.py"} <= names
+            "graphs.py"} <= names
     for path in sources:
         with open(path) as f:
             text = f.read()

@@ -276,6 +276,8 @@ def test_zero_is_bit_equal_to_the_replicated_update(world2):
         third = z["third"]
         for name, p in third["replicated"].items():
             assert torch.equal(p, third["restored"][name]), name
+        # six calls under a mesh, each run eagerly through the steps' graphs
+        assert z["eager"] == 6 and z["graphs"] == 0
 
 
 def test_tensor_parallel_dropout_streams(world2):

@@ -1,167 +1,33 @@
-"""The training micro-step's CUDA graphs (``training/train_graph.py``): when
-the pretraining and fraud steps go through a graph and when they run
-eagerly, the graphs' keys, the counters, the draws a replay makes and what
-it returns.
+"""The training steps' CUDA graphs (``training/steps.py``'s
+``StepGraphs`` over ``utils/graphs.py``): which calls run eagerly, what a
+replay computes and draws, and the kernels' seeds in device memory. The
+lifecycle both owners share is ``test_torch_graphs.py``'s.
 
-On the CPU the capture and replay primitive is swapped for ``FakeGraphs``:
-its capture runs the micro-step on the static inputs, its replay runs it
-again into the static outputs (and, as a graph runs no Python, takes back
-what the micro-step's wrappers counted). On the CPU a ``StepRNG``'s two
-generators are one, so these tests give the device draws a generator of
-their own, as on a card. The cases marked ``chip`` hold the real graphs to
-the eager step on a CUDA card, bit for bit, and skip without one; this file
-imports no JAX, so they run there without the suite's conftest:
+On the CPU the capture and replay primitive is ``graph_harness.FakeGraphs``.
+The cases marked ``chip`` hold the real graphs to the eager step on a CUDA
+card, bit for bit, and skip without one; this file imports no JAX, so they
+run there without the suite's conftest:
 
     python -m pytest --noconftest -m chip tests/test_torch_train_graph.py
 """
 
-import contextlib
 import copy
 
-import numpy as np
 import pytest
 import torch
+from graph_harness import (Eager, FakeGraphs, Run, SplitRNG, histories, make_table,
+                           tiny_config)
+from graph_harness import clean_counters  # noqa: F401  (autouse)
+from graph_harness import graph_counts as _graph_counts
 
-from recformer_tpu_torch.config import RecformerConfig
-from recformer_tpu_torch.models.heads import RecformerForFraudDetection, RecformerForPretraining
-from recformer_tpu_torch.models.recformer import init_weights
 from recformer_tpu_torch.ops import window_attention as wa
 from recformer_tpu_torch.training import steps
-from recformer_tpu_torch.training.optimizer import create_optimizer
-from recformer_tpu_torch.training.train_graph import CudaGraphs, SeedRecord, SeedSlots
-from recformer_tpu_torch.utils import profiling
+from recformer_tpu_torch.training.steps import SeedRecord, SeedSlots
 from recformer_tpu_torch.utils.rng import StepRNG, fold_in
 
 
-class FakeGraphs:
-    """The primitive's stand-in on the CPU; ``outer_capture`` plays a
-    stream capture running around the call."""
-
-    outer_capture = False
-
-    def usable(self, device):
-        return not self.outer_capture
-
-    def new_pool(self, device):
-        return object()
-
-    def new_generator(self, device):
-        return torch.Generator(device)
-
-    def side_stream(self, device):
-        return contextlib.nullcontext()
-
-    def capture(self, fn, args, pool, device, generator):
-        out = fn(*args)
-
-        def replay():
-            before = profiling.counters()
-            for o, n in zip(out, fn(*args)):
-                if o is not None:
-                    o.copy_(n)
-            for k, n in profiling.counters().items():
-                profiling.count(k, before.get(k, 0) - n)
-
-        return replay, out
-
-
-class Eager(CudaGraphs):
-    """The real primitive, refusing every call: the step runs eagerly."""
-
-    def usable(self, device):
-        return False
-
-
-class SplitRNG(StepRNG):
-    """A ``StepRNG`` whose device draws come from a generator of their own,
-    as on a card (on the CPU its two generators are one)."""
-
-    def __init__(self, seed, device="cpu"):
-        super().__init__(seed, device)
-        if self.device is self.host:
-            self.device = torch.Generator().manual_seed(fold_in(seed, 1))
-
-
-@pytest.fixture(autouse=True)
-def _clean_counters():
-    profiling.reset_counters()
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-    profiling.reset_counters()
-
-
 def graph_counts() -> dict:
-    return {k: v for k, v in profiling.counters().items() if k.startswith("train_graph.")}
-
-
-def tiny_config(**kw):
-    return RecformerConfig.tiny(**{"attention_impl": "pallas", "hidden_act": "gelu_tanh",
-                                   "dtype": "float32", **kw})
-
-
-def make_table(cfg, n_items=30, seed=0, device="cpu"):
-    rng = np.random.default_rng(seed)
-    M = cfg.max_item_token_len
-    lengths = rng.integers(3, M + 1, size=n_items + 1).astype(np.int32)
-    lengths[-1] = 0
-    table = {
-        "token_ids": rng.integers(4, cfg.vocab_size - 1, size=(n_items + 1, M)).astype(np.int32),
-        "token_types": np.tile(np.where(np.arange(M) % 8 < 2, 1, 2).astype(np.int32),
-                               (n_items + 1, 1)),
-        "word_begin": rng.integers(0, 2, size=(n_items + 1, M)).astype(np.int32),
-        "lengths": lengths,
-    }
-    return {k: torch.from_numpy(v).to(device) for k, v in table.items()}
-
-
-def histories(seed, B=4, S=10, n_items=30, device="cpu"):
-    """(item ids, lengths, fraud labels) of B rows of 2-S items."""
-    rng = np.random.default_rng(seed)
-    ids = rng.integers(0, n_items, size=(B, S)).astype(np.int32)
-    lens = rng.integers(2, S + 1, size=B).astype(np.int32)
-    labels = (np.arange(B) % 2).astype(np.int32)
-    return tuple(torch.from_numpy(a).to(device) for a in (ids, lens, labels))
-
-
-class Run:
-    """One task's model, optimizer and step, and a record of what each
-    optimizer step received and left: the gradients it was handed, the
-    parameters after it."""
-
-    def __init__(self, task, cfg, device="cpu", primitive=None, accum=2, seed=0):
-        cls = RecformerForPretraining if task == "pretrain" else RecformerForFraudDetection
-        torch.manual_seed(seed)
-        model = cls(cfg)
-        init_weights(model, cfg, torch.Generator().manual_seed(seed))
-        self.model = model.to(device)
-        self.task, self.device = task, device
-        self.opt = create_optimizer(self.model, learning_rate=1e-3, warmup_steps=0,
-                                    total_steps=1000, grad_accum_steps=accum if task == "pretrain"
-                                    else 1)
-        make = steps.make_pretrain_step if task == "pretrain" else steps.make_fraud_train_step
-        self.step = make(cfg, self.model, self.opt)
-        if primitive is not None:
-            self.step.graphs.primitive = primitive
-        self.grads, self.params = [], []
-        real = self.opt.step
-
-        def recorded():
-            self.grads.append([None if p.grad is None else p.grad.detach().clone()
-                               for p in self.model.parameters()])
-            took = real()
-            if took:
-                self.params.append([p.detach().clone() for p in self.model.parameters()])
-            return took
-
-        self.opt.step = recorded
-
-    def __call__(self, k, table, ids, lens, labels, rng_cls=SplitRNG):
-        if self.task == "pretrain":
-            return self.step(rng_cls(fold_in(7, k), self.device), table, ids, lens)
-        valid = torch.ones(ids.shape[0], dtype=torch.bool, device=ids.device)
-        return self.step(7, table, ids, lens, labels, valid)
+    return _graph_counts("train_graph")
 
 
 def equal(a, b) -> bool:
@@ -183,18 +49,6 @@ def split_fraud_rng(monkeypatch):
 # ---------------------------------------------------------------------------
 # when the step bypasses the graphs
 # ---------------------------------------------------------------------------
-
-def test_cpu_tensors_run_eagerly():
-    """The real primitive takes no CPU tensors: every call runs eagerly."""
-    cfg = tiny_config()
-    run = Run("pretrain", cfg)
-    table, (ids, lens, labels) = make_table(cfg), histories(1)
-    for k in range(3):
-        run(k, table, ids, lens, labels)
-    assert graph_counts() == {"train_graph.eager": 3}
-    assert len(run.step.graphs) == 0
-    assert not CudaGraphs().usable(torch.device("cpu"))
-
 
 def _bypassed(kind):
     """A pretraining run on the stand-in whose calls do not qualify, for
@@ -249,20 +103,6 @@ def test_replay_equals_the_eager_step(task, split_fraud_rng):
                               "train_graph.replays": n - 2}
 
 
-def test_first_sight_eager_then_capture_then_replay():
-    cfg = tiny_config()
-    run = Run("pretrain", cfg, primitive=FakeGraphs())
-    table, (ids, lens, labels) = make_table(cfg), histories(1)
-    expected = [{"train_graph.eager": 1},
-                {"train_graph.eager": 1, "train_graph.captures": 1},
-                {"train_graph.eager": 1, "train_graph.captures": 1, "train_graph.replays": 1},
-                {"train_graph.eager": 1, "train_graph.captures": 1, "train_graph.replays": 2}]
-    for k, counts in enumerate(expected):
-        run(k, table, ids, lens, labels)
-        assert graph_counts() == counts
-    assert len(run.step.graphs) == 1
-
-
 def test_a_new_signature_makes_a_new_graph():
     cfg = tiny_config()
     run = Run("pretrain", cfg, primitive=FakeGraphs())
@@ -276,21 +116,6 @@ def test_a_new_signature_makes_a_new_graph():
                                   "train_graph.captures": n_captures,
                                   "train_graph.replays": n_replays}
     assert len(run.step.graphs) == 2
-
-
-def test_a_change_of_parameter_storage_drops_the_graphs():
-    cfg = tiny_config()
-    run = Run("pretrain", cfg, primitive=FakeGraphs())
-    table, (ids, lens, labels) = make_table(cfg), histories(1)
-    for k in range(3):
-        run(k, table, ids, lens, labels)
-    assert len(run.step.graphs) == 1
-    w = run.model.longformer.encoder.layer[0].attention.self.query.weight
-    w.data = w.data.clone()
-    run(3, table, ids, lens, labels)  # a first sighting again
-    assert len(run.step.graphs) == 0
-    assert graph_counts() == {"train_graph.eager": 2, "train_graph.captures": 1,
-                              "train_graph.replays": 1}
 
 
 def test_a_replay_draws_the_eager_steps_seeds_and_moves_its_generators_alike():
@@ -310,7 +135,7 @@ def test_a_replay_draws_the_eager_steps_seeds_and_moves_its_generators_alike():
     (graph,) = graphed.step.graphs._graphs.values()
     assert graph_counts()["train_graph.replays"] == 1
     assert len(record.drawn) == 2 * cfg.num_hidden_layers
-    assert graph.seeds.values.tolist() == record.drawn
+    assert graph.kept.seeds.values.tolist() == record.drawn
     assert torch.equal(mine.host.get_state(), theirs.host.get_state())
     assert torch.equal(mine.device.get_state(), theirs.device.get_state())
 
@@ -330,19 +155,6 @@ def test_seed_slots_hand_out_views_of_their_buffer():
     assert all(s.data_ptr() == slots.values[i:i + 1].data_ptr() for i, s in enumerate(got))
     slots.load([8, 9, 10])
     assert int(wa.draw_seed(slots)) == 8 and int(got[2]) == 10
-
-
-def test_returned_metrics_are_not_aliased_across_calls():
-    cfg = tiny_config()
-    run = Run("pretrain", cfg, primitive=FakeGraphs())
-    table, (ids, lens, labels) = make_table(cfg), histories(1)
-    got = [run(k, table, ids, lens, labels) for k in range(4)]
-    (graph,) = run.step.graphs._graphs.values()
-    static = {t.data_ptr() for t in graph.metrics}
-    for m in got:
-        assert not any(t.data_ptr() in static for t in m.values())
-    assert got[2]["loss"].data_ptr() != got[3]["loss"].data_ptr()
-    assert not torch.equal(got[2]["loss"], got[3]["loss"])  # other draws, other losses
 
 
 # ---------------------------------------------------------------------------

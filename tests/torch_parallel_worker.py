@@ -228,10 +228,12 @@ def dp_eval(mesh, inp):
 def zero(mesh, inp):
     """Two AdamW steps (dropout on) replicated and under ZeRO from one set
     of weights; then a ZeRO optimizer restored from the replicated one's
-    whole state takes a third step beside it."""
+    whole state takes a third step beside it. ``eager``: the calls the
+    steps' graphs counted as run eagerly (every call under a mesh)."""
     from recformer_tpu_torch.models.heads import RecformerForPretraining
     from recformer_tpu_torch.training.optimizer import create_optimizer
     from recformer_tpu_torch.training.steps import make_pretrain_step
+    from recformer_tpu_torch.utils.profiling import counters
     from recformer_tpu_torch.utils.rng import StepRNG, fold_in
 
     d = inp["zero"]
@@ -248,6 +250,7 @@ def zero(mesh, inp):
         model, opt, fn = runs[name]
         return fn(StepRNG(fold_in(7, opt.micro_steps)), table, d["item_ids"], d["seq_lens"])
 
+    before = counters().get("train_graph.eager", 0)
     for _ in range(2):
         step("replicated")
         step("zero")
@@ -261,6 +264,8 @@ def zero(mesh, inp):
     step("replicated")
     step("restored")
     out["third"] = dict(replicated=_params(runs["replicated"][0]), restored=_params(model))
+    out["eager"] = counters().get("train_graph.eager", 0) - before
+    out["graphs"] = sum(len(fn.graphs) for _, _, fn in runs.values())
     return out
 
 
