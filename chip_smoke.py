@@ -267,8 +267,12 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
     worst gradient leaf within 1e-2) and in bf16 (its gaps reported), with
     their launches counted; the rank forward at (32, 8192) eager, captured
     and replayed, each bitwise equal to ``forward_eager``, each call 18
-    kernel-1 launches on the tensor cores and 10 global-attention launches
-    on a fused backend. ``python3 chip_smoke.py --only modernbert`` builds,
+    kernel-1 launches on the tensor cores, 10 global-attention launches on
+    a fused backend and 57 residual-sum + LayerNorm launches, 28 of them
+    with the residual (``ops/add_layernorm.py``); that kernel checked and
+    timed at the rank cell's 262,144 rows of 1,024 in bf16, with and without
+    the residual, beside its bytes bound, the plain chain it replaced and
+    the library route (``x + d`` then ``F.layer_norm``; ``add_layernorm_time``). ``python3 chip_smoke.py --only modernbert`` builds,
     runs kernel_check and kernel_time, then this phase (no result line).
 38. train_graph (run after serve_graph): the training micro-step's CUDA
     graphs (``utils/graphs.py``, ``training/steps.py``) at Recformer-base, pretraining at
@@ -1759,6 +1763,63 @@ def leaf_gap(grads, ref) -> float:
     return max(float((grads[n] - r).norm()) / max(norms[n], med) for n, r in ref.items())
 
 
+def time_add_layernorm(gen, card, rows=262144, H=1024):
+    """The residual sum + LayerNorm kernel (``ops/add_layernorm.py``) at the
+    rank cell's rows (32 x 8,192) of 1,024 in bf16, with and without the
+    residual: the sum bitwise the plain one, the output within one bf16 ulp
+    of the plain chain (no finer than at LN_ULP_FLOOR), one device kernel a
+    call; its device time a launch from a ``torch.profiler`` trace of 20
+    calls (``ms``), also a call from a CUDA graph of 10 (``graph_ms``: each
+    captured call writes new outputs, and such graphs have read up to 16%
+    above ``ms`` in some captures and not in others) and host-timed; the
+    plain chain's device time (the yardstick: what the model ran before),
+    the library route's (``library_ms``: the plain ``x + d`` then
+    ``F.layer_norm``, gamma in the input's type as that route takes it, two
+    kernels of about 10 bytes an element with the sum) and the bound (each
+    input read once, each output written once, over the HBM rate)."""
+    from recformer_tpu_torch.ops import add_layernorm as aln
+
+    dtype, elt = torch.bfloat16, 2
+    x = (torch.randn(rows, H, generator=gen, device="cuda") * 2.0).to(dtype)
+    d = torch.randn(rows, H, generator=gen, device="cuda").to(dtype)
+    w = 1.0 + 0.1 * torch.randn(H, generator=gen, device="cuda")
+    w_typed = w.to(dtype)
+    out = {}
+    with torch.no_grad():
+        for name, res in (("residual", d), ("alone", None)):
+            kernel = lambda: aln.add_layernorm(x, res, w, LN_EPS)  # noqa: E731
+            plain = lambda: aln.add_layernorm_plain(x, res, w, LN_EPS)  # noqa: E731
+            library = lambda: torch.nn.functional.layer_norm(  # noqa: E731
+                x if res is None else x + res, (H,), w_typed, None, LN_EPS)
+            got, want = kernel(), plain()
+            got, want = (got, want) if res is not None else ((got,), (want,))
+            sum_bitwise = res is None or torch.equal(got[0], want[0])
+            ref = want[-1].float()
+            err = (got[-1].float() - ref).abs()
+            within_ulp = bool((err <= bf16_ulp(ref.abs().clamp_min(LN_ULP_FLOOR))).all())
+            del got, want, ref, err
+            names = kernels_per_call(kernel)
+            ms = sum(device_ms_by_kernel(kernel, n=20).values())
+            graph_ms, host = graph_launch_ms(kernel, n=10), host_ms(kernel, n=10)
+            plain_ms = graph_launch_ms(plain, n=3)
+            library_ms = sum(device_ms_by_kernel(library, n=20).values())
+            nbytes = (4 if res is not None else 2) * rows * H * elt + H * 4
+            b_ms, b_by = bound(nbytes, 10 * rows * H, torch.float32)
+            out[name] = dict(ms=ms, bound_ms=b_ms, share_of_bound=b_ms / ms)
+            emit("add_layernorm_time", case=name, rows=rows, H=H, dtype="bfloat16", ms=ms,
+                 graph_ms=graph_ms, host_ms=host, plain_chain_ms=plain_ms,
+                 library_ms=library_ms, bound_ms=b_ms,
+                 bound_by=b_by, share_of_bound=b_ms / ms, bytes=nbytes, sum_bitwise=sum_bitwise,
+                 within_one_ulp=within_ulp, device_kernels_per_call=len(names),
+                 device_kernel_names=[k[:60] for k in names], card=card)
+            if not (sum_bitwise and within_ulp) or len(names) != 1:
+                raise AssertionError(f"add_layernorm {name}: sum bitwise {sum_bitwise}, within "
+                                     f"one ulp {within_ulp}, device kernels {names}")
+    del x, d
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_modernbert(seed, card):
     """ModernBERT-large at its published widths (``RecformerConfig.modernbert_large()``):
     kernels 1-2 at W 128 with no global column against their plain versions;
@@ -1769,7 +1830,8 @@ def run_modernbert(seed, card):
     its launches counted: kernel 2 on its CUDA-core passes); the rank
     forward at (32, 8192) eager, captured and replayed, the replay bitwise
     equal to ``forward_eager``, each call 18 kernel-1 launches on the tensor
-    cores and 10 global-attention launches on a fused backend."""
+    cores, 10 global-attention launches on a fused backend and 57 residual-sum
+    + LayerNorm launches, 28 with the residual (``time_add_layernorm`` first)."""
     from recformer_tpu_torch.cli.common import init_model_params
     from recformer_tpu_torch.config import RecformerConfig
     from recformer_tpu_torch.models.heads import RecformerForPretraining, RecformerForSeqRec
@@ -1780,7 +1842,7 @@ def run_modernbert(seed, card):
     from recformer_tpu_torch.utils import profiling
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 18)
-    out = {"kernel_errors": mb_check_kernels(gen)}
+    out = {"kernel_errors": mb_check_kernels(gen), "add_layernorm": time_add_layernorm(gen, card)}
     cfg = RecformerConfig.modernbert_large()
     n_global = sum(cfg.is_global_layer(i) for i in range(cfg.num_hidden_layers))
     n_local = cfg.num_hidden_layers - n_global
@@ -1870,8 +1932,12 @@ def run_modernbert(seed, card):
             "item_position_ids")
     batch, _ = mb_batch(cfg, gen, lengths, L)
     inputs = [batch[k] for k in keys]
+    # LayerNorms: embeddings.norm, attn_norm in every layer but 0, mlp_norm
+    # (after the attention block's residual sum) in every layer, final_norm
+    n_layers = cfg.num_hidden_layers
     per_call = {"kernel1.launches": n_local, "kernel1.tensor_core": n_local,
-                "global_attn.launches": n_global, "global_attn.fused": n_global}
+                "global_attn.launches": n_global, "global_attn.fused": n_global,
+                "add_layernorm.launches": 2 * n_layers + 1, "add_layernorm.residual": n_layers}
     expected = [{**per_call, "serve_graph.eager": 1}, {**per_call, "serve_graph.captures": 1},
                 {**per_call, "serve_graph.replays": 1}]
     with torch.no_grad():

@@ -36,6 +36,14 @@ float32 tables cast once. The tables are built once per (length, theta,
 device, dtype) and kept on the module, outside any CUDA-graph capture (a
 signature's first call runs eagerly, ``utils/graphs.py``).
 
+Every LayerNorm, and ``mlp_norm`` with the attention block's residual sum
+in front of it, is one call of ``ops/add_layernorm.py``: one hand-written
+kernel on the card, whose sum is bitwise the plain one and whose output
+differs from the plain chain only by the order of the row sums; on the CPU
+the plain chain itself. The layer's output sum ``x + mlp(...)`` stays a
+plain add, so a layer's input and output (``remat_layer``'s checkpoint)
+are the residual stream alone.
+
 No dropout (ModernBERT's are 0; the config refuses others) and no tensor,
 sequence or pipeline parallelism. Under ``remat`` each layer runs under
 ``encoder.remat_layer``; the tape keeps the dense products under the
@@ -50,19 +58,11 @@ import torch
 from torch import nn
 
 from ..config import RecformerConfig
+from ..ops.add_layernorm import add_layernorm
 from ..ops.full_attention import full_attention, full_attention_plain
 from ..ops.window_attention import local_window_attention
 from .encoder import LayerTape, activation, dense, remat_layer
 from .recformer import Backbone, RecformerModel
-
-
-def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
-    """Bias-free LayerNorm with float32 two-pass statistics; output in the
-    compute type."""
-    xf = x.float()
-    xc = xf - xf.mean(dim=-1, keepdim=True)
-    y = xc * torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + ln.eps) * ln.weight.float()
-    return y.to(dtype)
 
 
 def rope_tables(length: int, head_dim: int, theta: float, device, dtype):
@@ -118,7 +118,7 @@ class ModernBertEmbeddings(nn.Module):
         x = (self.tok_embeddings(input_ids).to(dt)
              + self.token_type_embeddings(token_type_ids).to(dt)
              + self.item_position_embeddings(item_position_ids).to(dt))
-        return layer_norm(x, self.norm, dt)
+        return add_layernorm(x, None, self.norm.weight, self.norm.eps)
 
 
 class ModernBertAttention(nn.Module):
@@ -176,10 +176,10 @@ class ModernBertLayer(nn.Module):
         """``ctx``: (key mask, this layer's RoPE tables); no dropout, so
         ``rng`` is not read."""
         mask, rope = ctx
-        dt = self.config.compute_dtype
-        h = x if isinstance(self.attn_norm, nn.Identity) else layer_norm(x, self.attn_norm, dt)
-        x = x + self.attn(h, mask, rope, tape)
-        return x + self.mlp(layer_norm(x, self.mlp_norm, dt), tape)
+        a, m = self.attn_norm, self.mlp_norm
+        h = x if isinstance(a, nn.Identity) else add_layernorm(x, None, a.weight, a.eps)
+        x, h = add_layernorm(x, self.attn(h, mask, rope, tape), m.weight, m.eps)
+        return x + self.mlp(h, tape)
 
 
 class ModernBertPredictionHead(nn.Module):
@@ -194,8 +194,8 @@ class ModernBertPredictionHead(nn.Module):
         self.norm = _norm(config)
 
     def forward(self, x):
-        dt = self.config.compute_dtype
-        return layer_norm(self.act(_dense(x, self.dense, dt)), self.norm, dt)
+        h = self.act(_dense(x, self.dense, self.config.compute_dtype))
+        return add_layernorm(h, None, self.norm.weight, self.norm.eps)
 
 
 class ModernBertModel(Backbone):
@@ -236,7 +236,7 @@ class ModernBertModel(Backbone):
                 x = remat_layer(layer, x, ctx, None, cfg.remat_policy)
             else:
                 x = layer(x, ctx)
-        x = layer_norm(x, self.final_norm, dt)
+        x = add_layernorm(x, None, self.final_norm.weight, self.final_norm.eps)
         return x, x[:, 0]
 
 

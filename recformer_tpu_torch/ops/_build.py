@@ -39,7 +39,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 _CSRC = os.path.join(_HERE, "csrc")
 SOURCES = {name: os.path.join(_CSRC, f"{name}.cu")
            for name in ("band_attention_fwd", "band_attention_bwd", "embed_layernorm",
-                        "layernorm_bwd", "band_probes")}
+                        "layernorm_bwd", "band_probes", "add_layernorm")}
 HEADERS = tuple(os.path.join(_CSRC, h)
                 for h in ("band_common.cuh", "band_mma.cuh", "row_reduce.cuh", "hopper_tma.cuh"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -85,6 +85,12 @@ SIGNATURES = {
         "layernorm_bwd_partial_rows": ([_I, _I], _I),  # dtype H
         "layernorm_bwd": (
             [_I, _P, _P, _P, _P, _P, _P,                  # dtype, x gamma dout dx partial dgb
+             _I, _I, _F, _P],                              # M H eps stream
+            _I),
+    },
+    "add_layernorm": {
+        "add_layernorm_fwd": (
+            [_I, _P, _P, _P, _P, _P,                      # dtype, x d gamma s y
              _I, _I, _F, _P],                              # M H eps stream
             _I),
     },

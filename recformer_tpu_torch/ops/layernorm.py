@@ -18,8 +18,8 @@ Counterpart of ``recformer_tpu/ops/pallas_layernorm.py``, selected by
   block's warps, then the blocks' rows of partials after a grid barrier):
   bitwise the same from run to run, and one call is one device kernel.
 - ``'split_bwd'``: :func:`split_layernorm`, plain PyTorch with
-  ``_sln_bwd``'s formula (gamma kept in float32). It has no kernel: the JAX
-  version has none.
+  ``_sln_bwd``'s formula (gamma kept in float32, :func:`ln_backward_math`).
+  It has no kernel: the JAX version has none.
 
 On CPU tensors the backward takes :func:`layernorm_bwd_plain`; on CUDA
 tensors it launches the kernel or raises. What bounds the kernel on the
@@ -31,6 +31,7 @@ they reduce the current one. ``PERF.md`` has its time beside the bound.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -41,17 +42,35 @@ from ._build import DTYPE_CODES, aligned, ptr
 SUPPORTED_WIDTHS = (64, 128, 256, 384, 512, 768, 1024)
 
 
-def ln_forward_math(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+def ln_forward_math(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
                     eps: float) -> torch.Tensor:
     """LayerNorm over the last axis: float32 mean, centred values, mean of
-    their squares, ``rsqrt(var + eps)``, ``x_hat * weight + bias``; output in
-    ``x``'s type."""
+    their squares, ``rsqrt(var + eps)``, ``x_hat * weight + bias`` (no bias
+    term where ``bias`` is None); output in ``x``'s type."""
     x32 = x.float()
     mu = x32.mean(dim=-1, keepdim=True)
     xc = x32 - mu
     var = (xc * xc).mean(dim=-1, keepdim=True)
-    y = xc * torch.rsqrt(var + eps)
-    return (y * weight.float() + bias.float()).to(x.dtype)
+    y = xc * torch.rsqrt(var + eps) * weight.float()
+    return (y if bias is None else y + bias.float()).to(x.dtype)
+
+
+def ln_backward_math(x: torch.Tensor, weight: torch.Tensor, dout: torch.Tensor, eps: float):
+    """``_sln_bwd``'s gradient of :func:`ln_forward_math` over the last axis,
+    gamma kept in float32 and the statistics recomputed: dx in ``x``'s type
+    and the float32 dgamma summed over every row (dbeta is ``dout``'s sum)."""
+    x32 = x.float()
+    dy = dout.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    xc = x32 - mu
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = xc * rstd
+    dyg = dy * weight.float()
+    m1 = dyg.mean(dim=-1, keepdim=True)
+    m2 = (dyg * xhat).mean(dim=-1, keepdim=True)
+    dx = (rstd * (dyg - m1 - xhat * m2)).to(x.dtype)
+    return dx, (dy * xhat).sum(tuple(range(x.dim() - 1)))
 
 
 def layernorm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor, dout: torch.Tensor, eps: float):
@@ -169,20 +188,9 @@ class _SplitLayerNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         x, weight = ctx.saved_tensors
-        x32 = x.float()
-        dy = dout.float()
-        mu = x32.mean(dim=-1, keepdim=True)
-        xc = x32 - mu
-        var = (xc * xc).mean(dim=-1, keepdim=True)
-        rstd = torch.rsqrt(var + ctx.eps)
-        xhat = xc * rstd
-        dyg = dy * weight.float()
-        m1 = dyg.mean(dim=-1, keepdim=True)
-        m2 = (dyg * xhat).mean(dim=-1, keepdim=True)
-        dx = (rstd * (dyg - m1 - xhat * m2)).to(x.dtype)
-        rows = tuple(range(x.dim() - 1))
-        return (dx, (dy * xhat).sum(rows).to(weight.dtype), dy.sum(rows).to(weight.dtype),
-                None)
+        dx, dgamma = ln_backward_math(x, weight, dout, ctx.eps)
+        dbeta = dout.float().sum(tuple(range(x.dim() - 1)))
+        return dx, dgamma.to(weight.dtype), dbeta.to(weight.dtype), None
 
 
 def split_layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -24,14 +24,16 @@ batch assembly, pairs and whole-word MLM), ``forward`` (a training step's
 model call through the loss), ``forward.encoder`` (the backbone),
 ``backward`` (with the gradient reduction under a mesh), ``optimizer``,
 ``score`` (similarity against the catalog), ``launch.kernel1`` ..
-``launch.kernel5`` (the hand-written kernels' host wrappers) and
-``launch.global_attn`` (the full-attention op's wrapper,
+``launch.kernel5`` and ``launch.add_layernorm`` (the hand-written kernels'
+host wrappers) and ``launch.global_attn`` (the full-attention op's wrapper,
 ``ops/full_attention.py``).
 
 Counters (:func:`count`) are host integers and always on: the kernels'
 launches, ``kernel<N>.launches``, ``kernel1.tensor_core`` and
 ``kernel2.tensor_core`` (those on the tensor cores), ``ablation.launches``
-and ``headpair.launches``; the full-attention op's ``global_attn.launches``
+and ``headpair.launches``; ``add_layernorm.launches`` and
+``add_layernorm.residual`` (those with a residual sum,
+``ops/add_layernorm.py``); the full-attention op's ``global_attn.launches``
 and ``global_attn.fused`` (those on a fused backend); the CUDA graphs'
 (``utils/graphs.py``), the backbone's for serving ``serve_graph.captures``,
 ``serve_graph.replays`` and ``serve_graph.eager``, and the training
