@@ -20,15 +20,16 @@ from ..data.vocab import backend_for_config
 from ..models.recformer import init_weights
 from ..training.checkpoint import load_torch_checkpoint, merge_params
 from ..utils.device import resolve_device
+from ..weights import deepseek_v3_from_hf
 
 
-MODEL_SIZES = ("base", "tiny", "modernbert-large")
+MODEL_SIZES = ("base", "tiny", "modernbert-large", "moonlight-16b-a3b")
 
 
 def build_config(args, item_num: int = 0) -> RecformerConfig:
     """The config of ``args.model_size`` (one of :data:`MODEL_SIZES`:
-    ``RecformerConfig.base()``, ``.tiny()`` or ``.modernbert_large()``) with
-    the options the command line gave."""
+    ``RecformerConfig.base()``, ``.tiny()``, ``.modernbert_large()`` or
+    ``.moonlight_16b_a3b()``) with the options the command line gave."""
     kw = dict(item_num=item_num)
     for name in ("temp", "finetune_negative_sample_size", "attention_impl",
                  "max_token_num", "pooler_type", "mlm_weight", "pos_weight",
@@ -42,6 +43,8 @@ def build_config(args, item_num: int = 0) -> RecformerConfig:
                                        if k not in ("max_token_num",)})
     if size == "modernbert-large":
         return RecformerConfig.modernbert_large(**kw)
+    if size == "moonlight-16b-a3b":
+        return RecformerConfig.moonlight_16b_a3b(**kw)
     return RecformerConfig.base(**kw)
 
 
@@ -99,7 +102,12 @@ def init_model_params(model, config: RecformerConfig, device="cuda", seed: int =
 def maybe_load_pretrained(model, ckpt_path: Optional[str]):
     """Load a torch ``.bin``/``.pt`` state dict into ``model`` with
     ``training.checkpoint.merge_params``: every name and shape match is
-    copied, the rest keeps its initial value. Returns the model."""
+    copied, the rest keeps its initial value; a deepseek_v3 model reads
+    Hugging Face's names (``weights.deepseek_v3_from_hf``). Returns the
+    model."""
     if ckpt_path:
-        merge_params(load_torch_checkpoint(ckpt_path), model)
+        source = load_torch_checkpoint(ckpt_path)
+        if model.config.backbone == "deepseek_v3":
+            source = deepseek_v3_from_hf(source)
+        merge_params(source, model)
     return model

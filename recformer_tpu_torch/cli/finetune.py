@@ -114,6 +114,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     train, val, test, meta, item2id, _ = load_finetune_artifacts(args.data_path)
     config = build_config(args, item_num=len(item2id))
+    if config.inference_only:
+        raise SystemExit(f"--model_size {args.model_size} runs for inference only (cli.serve)")
     tokenizer = make_tokenizer(config, args.hf_tokenizer)
 
     name = os.path.basename(os.path.normpath(args.data_path))

@@ -48,6 +48,14 @@ def similarity_scores(pooled: torch.Tensor, item_embeddings: torch.Tensor, temp:
     return scores / temp
 
 
+def _trainable(config: RecformerConfig, head: str) -> None:
+    """Refuses a head that trains on a backbone that runs for inference
+    only (:attr:`RecformerConfig.inference_only`)."""
+    if config.inference_only:
+        raise ValueError(f"the {head} head does not run on the {config.backbone} backbone, "
+                         "which runs for inference only")
+
+
 class RecformerForSeqRec(nn.Module):
     """Sequence encoder for serving; returns the pooled ``(B, H)`` output."""
 
@@ -80,6 +88,7 @@ class RecformerForFraudDetection(nn.Module):
     def __init__(self, config: RecformerConfig):
         super().__init__()
         self.config = config
+        _trainable(config, "fraud")
         self.longformer = backbone_model(config)
         h, pd = config.hidden_size, config.params_dtype
         self.fc1 = nn.Linear(h, h // 2, dtype=pd)
@@ -150,6 +159,7 @@ class RecformerForPretraining(nn.Module):
     def __init__(self, config: RecformerConfig):
         super().__init__()
         self.config = config
+        _trainable(config, "pretraining")
         self.longformer = backbone_model(config)
         if config.backbone == "modernbert":
             self.head = ModernBertPredictionHead(config)

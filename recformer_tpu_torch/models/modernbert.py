@@ -242,4 +242,8 @@ class ModernBertModel(Backbone):
 
 def backbone_model(config: RecformerConfig) -> Backbone:
     """The backbone ``config.backbone`` names."""
+    if config.backbone == "deepseek_v3":
+        from .deepseek_v3 import DeepseekV3Model
+
+        return DeepseekV3Model(config)
     return ModernBertModel(config) if config.backbone == "modernbert" else RecformerModel(config)

@@ -27,6 +27,14 @@ def merge_attention_masks(attention_mask: torch.Tensor, global_attention_mask: t
     return attention_mask * (global_attention_mask + 1)
 
 
+def last_token(hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The last valid token's ``(B, H)`` state: padding trails, so it is at
+    the number of nonzero ``mask`` entries less one (position 0 for a row
+    with none)."""
+    last = ((mask != 0).sum(1) - 1).clamp_min(0)
+    return hidden.gather(1, last[:, None, None].expand(-1, 1, hidden.shape[-1]))[:, 0]
+
+
 class RecformerPooler(nn.Module):
     def __init__(self, config: RecformerConfig):
         super().__init__()
@@ -97,7 +105,8 @@ def init_weights(module: nn.Module, config: RecformerConfig, generator: torch.Ge
     """The JAX package's initialisers from an explicit generator: normal
     (0, initializer_range) for dense kernels and embedding tables, zero
     biases (the MLM decoder bias included), unit LayerNorm scales. Layers
-    without a bias keep none."""
+    without a bias keep none; a module with its own ``init_weights(std,
+    generator)`` (stacked experts) draws its parameters there."""
     std = config.initializer_range
     for m in module.modules():
         if isinstance(m, nn.Linear):
@@ -106,6 +115,8 @@ def init_weights(module: nn.Module, config: RecformerConfig, generator: torch.Ge
             m.weight.normal_(0.0, std, generator=generator)
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
+        elif hasattr(m, "init_weights"):
+            m.init_weights(std, generator)
         if isinstance(m, (nn.Linear, nn.LayerNorm)) and m.bias is not None:
             m.bias.zero_()
     for name, p in module.named_parameters():

@@ -25,8 +25,10 @@ model call through the loss), ``forward.encoder`` (the backbone),
 ``backward`` (with the gradient reduction under a mesh), ``optimizer``,
 ``score`` (similarity against the catalog), ``launch.kernel1`` ..
 ``launch.kernel5`` and ``launch.add_layernorm`` (the hand-written kernels'
-host wrappers) and ``launch.global_attn`` (the full-attention op's wrapper,
-``ops/full_attention.py``).
+host wrappers), ``launch.global_attn`` (the full-attention op's wrapper,
+``ops/full_attention.py``), ``launch.moe`` (the routed experts' dispatch,
+grouped GEMMs and combine) and ``moe.route`` (the router), both
+``ops/moe.py``.
 
 Counters (:func:`count`) are host integers and always on: the kernels'
 launches, ``kernel<N>.launches``, ``kernel1.tensor_core`` and
@@ -34,7 +36,9 @@ launches, ``kernel<N>.launches``, ``kernel1.tensor_core`` and
 and ``headpair.launches``; ``add_layernorm.launches`` and
 ``add_layernorm.residual`` (those with a residual sum,
 ``ops/add_layernorm.py``); the full-attention op's ``global_attn.launches``
-and ``global_attn.fused`` (those on a fused backend); the CUDA graphs'
+and ``global_attn.fused`` (those on a fused backend), the causal calls
+among them; the routed experts' ``moe.launches`` (MoE layer calls on
+CUDA) and ``moe.grouped_gemm`` (grouped-GEMM launches); the CUDA graphs'
 (``utils/graphs.py``), the backbone's for serving ``serve_graph.captures``,
 ``serve_graph.replays`` and ``serve_graph.eager``, and the training
 micro-step's ``train_graph.captures``, ``train_graph.replays`` and

@@ -205,3 +205,32 @@ def to_flax_params(state_dict: Dict[str, torch.Tensor], stacked: bool = False):
             node = node.setdefault(k, {})
         node[path[-1]] = np.ascontiguousarray(a.T if transpose else a)
     return stack_layer_params(root) if stacked else root
+
+
+_HF_EXPERT = re.compile(r"^(.*\.mlp\.experts)\.(\d+)\.(gate|up|down)_proj\.weight$")
+
+
+def deepseek_v3_from_hf(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A Hugging Face ``DeepseekV3Model``/``DeepseekV3ForCausalLM`` state dict
+    under the port's names (``models/deepseek_v3.py``): ``model.`` read as
+    the heads' ``longformer.``, each MoE layer's per-expert
+    ``mlp.experts.E.{gate,up,down}_proj.weight`` stacked into
+    ``mlp.experts.gate_up_proj`` ``(E, 2I, hs)`` (gate rows, then up rows)
+    and ``mlp.experts.down_proj`` ``(E, hs, I)``; the LM head, which ranking
+    does not read, left out."""
+    out, experts = {}, {}
+    for name, t in state_dict.items():
+        if name.startswith("lm_head."):
+            continue
+        name = "longformer." + (name[len("model."):] if name.startswith("model.") else name)
+        m = _HF_EXPERT.match(name)
+        if m is None:
+            out[name] = t
+        else:
+            experts.setdefault(m.group(1), {}).setdefault(m.group(3), {})[int(m.group(2))] = t
+    for prefix, parts in experts.items():
+        n = len(parts["down"])
+        out[prefix + ".gate_up_proj"] = torch.stack(
+            [torch.cat([parts["gate"][e], parts["up"][e]]) for e in range(n)])
+        out[prefix + ".down_proj"] = torch.stack([parts["down"][e] for e in range(n)])
+    return out

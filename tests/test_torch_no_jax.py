@@ -29,7 +29,8 @@ def test_importing_every_module_loads_no_jax():
                  "examples.synthetic_end_to_end", "parallel.mesh", "parallel.collectives",
                  "parallel.catalog", "parallel.tensor", "parallel.dryrun", "cli.pretrain",
                  "cli.serve", "parallel.sequence", "parallel.pipeline", "ops.full_attention",
-                 "models.modernbert", "reference.modernbert", "utils.graphs"):
+                 "models.modernbert", "reference.modernbert", "utils.graphs",
+                 "models.deepseek_v3", "reference.deepseek_v3", "ops.moe"):
         assert f"recformer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
